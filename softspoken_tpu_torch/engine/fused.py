@@ -1,0 +1,354 @@
+"""Fused streaming detection: raw PCM up, score grids down.
+
+Per chunk the device runs
+
+    int16 PCM ─▶ ÷32768 ─▶ polyphase-matmul resample (io.resample) ─▶
+    framing + DFT + mel (ops.frame_mel, the CUDA kernel in fast mode) ─▶
+    U-Net mask head per batch ─▶ overlap grid ─▶ averaged scores
+
+and the inter-chunk grid overlap (windows straddling a chunk boundary) stays
+on the device as a carry, so chunking never changes results.  The host reads
+chunk k+depth and uploads it on a side stream while the card computes chunk
+k, and fetches every chunk's grid in one transfer at the end.
+
+Numerics: this path resamples the zero-padded native stream, where a host
+pipeline would resample first and pad in the internal domain; the two differ
+only within a filter length (~1.5 ms) of the ±3 s pad joins.  Hold it
+against the JAX package's fused pipeline, not its host pipeline.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..io import wavio
+from ..io.resample import _ratio, polyphase_apply, polyphase_block_geometry
+from . import regions as R
+from .detector import DetectionResult, Detector, _not_ported
+from .planner import num_windows_for_padded_length, window_starts
+
+CARRY = 512  # bins of inter-chunk grid overlap (needs ≥ 256 − min bin stride)
+
+
+class FusedStreamingEngine:
+    """Chunk program for one (native_sr, wire kind) on the detector's device.
+
+    ``kind`` is "i16" (PCM16 mono, ÷32768 on the device) or "f32" (host
+    decoded and downmixed).  Not thread-safe; ``run`` keeps its state local.
+    """
+
+    def __init__(self, detector: Detector, native_sr: int, kind: str = "i16"):
+        if kind not in ("i16", "f32"):
+            raise _not_ported(f"the {kind!r} upload wire")
+        self.det = detector
+        self.device = detector.device
+        self.cfg = cfg = detector.cfg
+        self.kind = kind
+        self.native_sr = native_sr
+        self.up, self.down = _ratio(native_sr, cfg.dsp.sample_rate)
+
+        self.chunk_w = detector.chunk_windows()
+        self.B = cfg.engine.device_batch
+        self.nb = self.chunk_w // self.B
+        self.buf_len = detector.chunk_buffer_len()
+
+        # The grid must reach fin+CARRY so the carry slice is in bounds for
+        # every chunk, the final one (finalized through `covered`) included.
+        step, dt = cfg.engine.step_seconds, R.TIME_RESOLUTION
+        scatter_extent = int(round((self.chunk_w - 1) * step / dt)) + 256 + 2
+        fin_upper = max(
+            int(round(self.chunk_w * step / dt)),
+            int(round((self.chunk_w - 1) * step / dt)) + 256,
+        ) + 2
+        self.glen = max(scatter_extent, fin_upper + CARRY)
+        self._lanes = torch.arange(256, device=self.device)
+
+        if self.up == 1 and self.down == 1:
+            self.W = None
+            self.pad_l = 0
+            self.in_len = self.buf_len
+        else:
+            (W, self.wmin, self.n_blocks, self.n_copies,
+             self.pad_l, self.in_len) = polyphase_block_geometry(
+                self.up, self.down, self.buf_len)
+            self.width = W.shape[0]
+            self.W = torch.from_numpy(W).to(self.device)
+        self._dtype = torch.float32 if kind == "f32" else torch.int16
+
+    # ------------------------------------------------------------------
+    def _program(self, native: torch.Tensor, lo: int, fin: int,
+                 starts: torch.Tensor, bins: torch.Tensor, valid: torch.Tensor,
+                 carry_sum: torch.Tensor, carry_cnt: torch.Tensor):
+        """One chunk: native (in_len,) → (avg, cnt, carry_sum', carry_cnt'),
+        avg/cnt of length glen.  ``bins`` (chunk_w,) int64 on the device,
+        range-checked on the host by ``_check_bins``."""
+        x = native.to(torch.float32)
+        if self.kind == "i16":
+            x = x * (1.0 / 32768.0)
+        if self.W is not None:
+            x = polyphase_apply(x, self.W, wmin=self.wmin, pad_l=self.pad_l,
+                                n_blocks=self.n_blocks, n_copies=self.n_copies,
+                                down=self.down, width=self.width)
+        if not 0 <= lo <= x.shape[0] - self.buf_len:
+            raise RuntimeError(f"chunk window out of range: lo={lo} len={x.shape[0]}")
+        internal = x[lo: lo + self.buf_len]
+
+        logits = torch.cat([self.det._forward(internal, starts[i])
+                            for i in range(self.nb)])          # (chunk_w, 256)
+        # overlap grid: one scatter-add for any step size (tail-chunk padding
+        # windows add zeros at bin 0); on the card the adds into one bin land
+        # in any order, so sums may differ in the last ulp from run to run
+        idx = (bins[:, None] + self._lanes).reshape(-1)
+        sum_g = torch.zeros(self.glen, dtype=torch.float32, device=self.device)
+        sum_g.index_add_(0, idx, (logits * valid[:, None]).reshape(-1))
+        cnt_g = torch.zeros_like(sum_g)
+        cnt_g.index_add_(0, idx, valid[:, None].expand(self.chunk_w, 256).reshape(-1))
+        sum_g[:CARRY] += carry_sum
+        cnt_g[:CARRY] += carry_cnt
+        if not 0 <= fin <= self.glen - CARRY:
+            raise RuntimeError(f"carry slice out of range: fin={fin} glen={self.glen}")
+        avg = sum_g / torch.clamp(cnt_g, min=1.0)
+        return avg, cnt_g, sum_g[fin: fin + CARRY].clone(), cnt_g[fin: fin + CARRY].clone()
+
+    def _check_bins(self, bins: np.ndarray) -> None:
+        """Every grid index bins[i] + [0, 256) lies in [0, glen): an index past
+        the grid would corrupt the carry or trip a device-side assert."""
+        if int(bins.min()) < 0 or int(bins.max()) + 256 > self.glen:
+            raise RuntimeError(f"grid scatter out of range: bins [{bins.min()}, "
+                               f"{bins.max()}] + 256 > glen={self.glen}")
+
+    # ------------------------------------------------------------------
+    def device_only_rate(self, repeats: int = 8) -> float:
+        """Audio-seconds per wall-second of the chunk program alone: one full
+        synthetic chunk (zero audio, every window valid) resident on the
+        device, the carry threaded through so the chunks serialize."""
+        cfg = self.cfg
+        step = cfg.engine.step_seconds
+        starts = np.minimum(np.arange(self.chunk_w, dtype=np.int64) * cfg.samples_per_step,
+                            self.buf_len - cfg.samples_per_window).astype(np.int32)
+        bins_np = R.window_bin_offset(np.arange(self.chunk_w), step)
+        self._check_bins(bins_np)
+        bins = torch.from_numpy(bins_np.astype(np.int64)).to(self.device)
+        native = torch.zeros(self.in_len, dtype=self._dtype, device=self.device)
+        st = torch.from_numpy(starts.reshape(self.nb, self.B)).to(self.device)
+        valid = torch.ones(self.chunk_w, dtype=torch.float32, device=self.device)
+        cs = torch.zeros(CARRY, device=self.device)
+        cc = torch.zeros(CARRY, device=self.device)
+        self._program(native, 0, 0, st, bins, valid, cs, cc)
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            avg, _, cs, cc = self._program(native, 0, 0, st, bins, valid, cs, cc)
+        self._sync()
+        wall = time.perf_counter() - t0
+        return repeats * self.chunk_w * step / wall
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def run(
+        self,
+        read_native: Callable[[int, int], np.ndarray],
+        native_frames: int,
+        progress: Optional[Callable[[float], None]] = None,
+        timers=None,
+    ) -> DetectionResult:
+        """Detect over a native-rate stream of ``native_frames`` samples.
+
+        ``read_native(start, frames)`` returns samples of the engine's wire
+        kind (int16 or float32 mono), clamped at EOF.  ``timers``
+        (runtime.metrics.StageTimers) collects host_fill / device_put on the
+        read-ahead threads and wait_prepare / dispatch / final_fetch here.
+        """
+        tt = timers.time if timers is not None else (lambda _n: nullcontext())
+        cfg = self.cfg
+        up, down = self.up, self.down
+        cuda = self.device.type == "cuda"
+        pad_native = int(round(cfg.engine.pad_seconds * self.native_sr))
+        n_nat_padded = native_frames + 2 * pad_native
+        padded_len = -(-n_nat_padded * up // down) if self.W is not None else n_nat_padded
+
+        n_windows = num_windows_for_padded_length(padded_len, cfg)
+        if n_windows <= 0:
+            return DetectionResult([], np.zeros(0), 0, 0.0)
+        starts_g = window_starts(n_windows, cfg)
+        bins_g = R.window_bin_offset(np.arange(n_windows), cfg.engine.step_seconds)
+        covered = int(bins_g[-1]) + 256
+
+        def read_padded(start: int, frames: int, out: np.ndarray) -> None:
+            """Native padded-stream samples [start, start+frames) into out."""
+            a0 = max(start, pad_native)
+            a1 = min(start + frames, pad_native + native_frames)
+            if a1 > a0:
+                got = read_native(a0 - pad_native, a1 - a0)
+                out[a0 - start: a0 - start + len(got)] = got
+
+        n_chunks = -(-n_windows // self.chunk_w)
+
+        def prepare(ci: int):
+            """Host side of chunk ci (fill thread): pinned staging + metadata."""
+            t_fill = time.perf_counter()
+            w0 = ci * self.chunk_w
+            w1 = min(w0 + self.chunk_w, n_windows)
+            s0 = int(starts_g[w0])
+            base = int(bins_g[w0])
+            # the last chunk finalizes through `covered`, even when full
+            next_base = (int(R.window_bin_offset(np.array([w0 + self.chunk_w]),
+                                                 cfg.engine.step_seconds)[0])
+                         if ci + 1 < n_chunks else covered)
+            fin = min(next_base, covered) - base
+
+            staging_t = torch.zeros(self.in_len, dtype=self._dtype, pin_memory=cuda)
+            staging = staging_t.numpy()
+            if self.W is None:
+                lo = 0
+                read_padded(s0, min(self.in_len, n_nat_padded - s0), staging)
+            else:  # align reads to whole `down` blocks
+                rs = max(0, (s0 * down) // up - 2 * down)
+                rs -= rs % down
+                lo = s0 - (rs * up) // down
+                if not 0 <= lo <= 4 * up:
+                    raise RuntimeError(f"polyphase alignment drift: lo={lo} up={up}")
+                if lo + self.buf_len > self.n_blocks * up:
+                    raise RuntimeError(
+                        f"polyphase window overruns resample blocks: lo={lo}")
+                left = min(rs, self.pad_l)
+                re = min(n_nat_padded, rs + self.in_len - self.pad_l)
+                off = self.pad_l - left
+                read_padded(rs - left, re - (rs - left), staging[off:])
+
+            n = w1 - w0
+            starts_l = np.zeros(self.chunk_w, np.int32)
+            bins_l = np.zeros(self.chunk_w, np.int64)
+            valid = np.zeros(self.chunk_w, np.float32)
+            starts_l[:n] = starts_g[w0:w1] - s0
+            bins_l[:n] = bins_g[w0:w1] - base
+            valid[:n] = 1.0
+            if int(starts_l.max()) + cfg.samples_per_window > self.buf_len:
+                raise RuntimeError("window start past the chunk buffer")
+            self._check_bins(bins_l)
+            meta = [torch.from_numpy(a) for a in (starts_l, bins_l, valid)]
+            if cuda:
+                meta = [t.pin_memory() for t in meta]
+            if timers is not None:
+                timers.add("host_fill", time.perf_counter() - t_fill)
+            return (staging_t, *meta), lo, fin, w1
+
+        up_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def upload(fill_fut):
+            """Wire side of one chunk (upload thread): async copies of the
+            pinned payload on a side stream, with an event to wait on."""
+            host, lo, fin, w1 = fill_fut.result()
+            t_put = time.perf_counter()
+            ev = None
+            with torch.cuda.stream(up_stream) if cuda else nullcontext():
+                dev = [t.to(self.device, non_blocking=True) for t in host]
+                if cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(up_stream)
+            if timers is not None:
+                timers.add("device_put", time.perf_counter() - t_put)
+            return dev, ev, lo, fin, w1
+
+        carry_sum = torch.zeros(CARRY, dtype=torch.float32, device=self.device)
+        carry_cnt = torch.zeros_like(carry_sum)
+        depth = max(1, cfg.engine.readahead_chunks)
+        pending: List[Tuple[int, torch.Tensor]] = []
+        with ThreadPoolExecutor(max_workers=1) as fill_ex, \
+                ThreadPoolExecutor(max_workers=1) as up_ex:
+            futs = deque(up_ex.submit(upload, fill_ex.submit(prepare, ci))
+                         for ci in range(min(depth, n_chunks)))
+            for ci in range(n_chunks):
+                with tt("wait_prepare"):
+                    dev, ev, lo, fin, w1 = futs.popleft().result()
+                if ci + depth < n_chunks:
+                    futs.append(up_ex.submit(upload, fill_ex.submit(prepare, ci + depth)))
+                with tt("dispatch"):
+                    if cuda:
+                        cur = torch.cuda.current_stream(self.device)
+                        cur.wait_event(ev)
+                        for t in dev:  # allocated on the side stream, used here
+                            t.record_stream(cur)
+                    native, starts_d, bins_d, valid_d = dev
+                    avg, _cnt, carry_sum, carry_cnt = self._program(
+                        native, lo, fin, starts_d.view(self.nb, self.B), bins_d,
+                        valid_d, carry_sum, carry_cnt)
+                pending.append((fin, avg))
+                if progress is not None:
+                    progress(w1 / n_windows)
+
+        # one device→host transfer for every chunk's grid
+        with tt("final_fetch"):
+            avg_values = torch.cat([a[:fin] for fin, a in pending]).cpu().numpy()
+        avg_values = avg_values[:covered]
+        if cfg.engine.min_count > 1:
+            # coverage counts are a pure function of the window offsets
+            # (NNDetector.py:153,181-183): recompute them on the host
+            cnt = np.zeros(covered, np.int64)
+            idx = (bins_g[:, None] + np.arange(256)[None, :]).ravel()
+            np.add.at(cnt, idx[idx < covered], 1)
+            avg_values = np.where(cnt >= cfg.engine.min_count, avg_values, -np.inf)
+        regions = R.find_speech_regions(
+            avg_values, cfg.engine.threshold, cfg.engine.break_duration,
+            exit_threshold=cfg.engine.exit_threshold,
+            smooth_bins=cfg.engine.grid_smooth,
+        )
+        regions = R.shift_regions(regions, -cfg.engine.pad_seconds)
+        return DetectionResult(regions, avg_values, n_windows,
+                               native_frames / self.native_sr)
+
+
+def get_fused_engine(detector: Detector, native_sr: int, kind: str) -> FusedStreamingEngine:
+    """The detector's engine for (native_sr, kind), built on first use."""
+    key = (native_sr, kind, detector.cfg.engine.device_batch,
+           detector.cfg.engine.chunk_seconds)
+    eng = detector._engines.get(key)
+    if eng is None:
+        eng = detector._engines[key] = FusedStreamingEngine(detector, native_sr, kind)
+    return eng
+
+
+def _wire_kind(detector: Detector) -> str:
+    """Upload wire for a PCM16 source; "auto" and "pcm16" are the exact
+    int16 wire (the lossy mu-law and ADPCM wires are a later slice)."""
+    codec = detector.cfg.engine.upload_codec
+    if codec not in ("auto", "pcm16"):
+        raise _not_ported(f"upload_codec={codec!r}")
+    return "i16"
+
+
+def detect_file_fused(
+    detector: Detector, path: str,
+    progress: Optional[Callable[[float], None]] = None,
+    journal_dir: Optional[str] = None, timers=None,
+) -> DetectionResult:
+    """Whole-file detection through the fused device pipeline.
+
+    PCM16 mono WAV streams raw int16 to the device; every other WAV subtype
+    (24/32-bit, float, multichannel) is decoded and downmixed on the host
+    and rides the float32 wire.
+    """
+    if journal_dir or detector.cfg.engine.chunk_checkpoint_every > 0:
+        raise _not_ported("chunk journaling (engine.chunk_checkpoint_every)")
+    kind = _wire_kind(detector)
+    with wavio.RawReader(path) as reader:
+        inf = reader.info
+        if inf.subtype == "PCM_16" and inf.channels == 1:
+            def read_native(start: int, frames: int) -> np.ndarray:
+                reader.will_need(start + frames, frames)  # prefetch the next chunk
+                return reader.read_raw(start, frames).view("<i2")
+
+            engine = get_fused_engine(detector, inf.samplerate, kind)
+            return engine.run(read_native, inf.frames, progress, timers=timers)
+        engine = get_fused_engine(detector, inf.samplerate, "f32")
+        return engine.run(reader.read_mono_f32, inf.frames, progress, timers=timers)

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "softspoken_tpu_torch")
+
+
+def _modules():
+    out = []
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py") and f != "__main__.py":
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                out.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(out)
+
+
+def test_importing_every_module_loads_no_jax():
+    """In a fresh interpreter (conftest already imported jax here)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'softspoken_tpu' or m.startswith('softspoken_tpu.')]\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("mod", _modules() + ["chip_smoke"])
+def test_no_jax_or_reference_imports_in_source(mod):
+    path = os.path.join(ROOT, *mod.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *mod.split("."), "__init__.py")
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas"), n
+            assert top != "softspoken_tpu", n
+
+
+def test_detector_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Detector(state_dict=fixture_state_dict(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from softspoken_tpu_torch import cli
+
+        cli.main(["detect", "--files", "x.wav", "--random-init"])
