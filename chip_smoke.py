@@ -5,12 +5,19 @@
 
 Phases:
   1. device and toolchain: the card's name and power limit, nvcc/triton,
-     and the kernels built from ``softspoken_tpu_torch/csrc`` (build seconds)
-  2. every kernel against its plain PyTorch version at the main path's
-     shapes, with its stated tolerance, and its timing beside the bound
-  3. end to end: ``detect`` on a 30-minute 32 kHz PCM16 WAV in fast mode
-     (launch counts reset just before, read just after), then parity-mode
-     checks: chunked == unchunked on the card, and card == CPU
+     and the kernels built from ``softspoken_tpu_torch/csrc``, one nvcc per
+     source, all started together (build seconds)
+  2. every kernel against its plain PyTorch version at its path's shapes,
+     with its stated tolerance, and its timing beside the bound: K1
+     frame_mel (fused path), K2 dft_mel (host path, mel_kernel="pallas")
+  3. the fused path: ``detect`` on a 30-minute 32 kHz PCM16 WAV in fast
+     mode (launch counts reset just before, read just after), then
+     parity-mode checks: chunked == unchunked on the card, and card == CPU
+  4. the host path: ``detect`` on the same WAV with ``{"engine":
+     {"pipeline": "host", "mel_kernel": "pallas"}}`` (counts reset just
+     before each run, read just after), twice in memory, then --streaming
+     with the device resampler; then parity-mode checks: card == CPU and
+     streaming == in-memory
 Prints a JSON line of kernel records, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
@@ -25,6 +32,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,6 +52,10 @@ PEAKS = {
 # round one way or the other: one bf16 ulp below 4 is 2**-6.
 TOL_F32 = 1e-4
 TOL_BF16 = 2.0 ** -6
+# dft_mel (K2) against its plain version: float32 operands and sums on both
+# sides, TF32 off in the plain version, so only the summation order differs
+TOL_DFT_MEL = 1e-4
+KERNELS = ("frame_mel", "dft_mel")
 
 
 def log(*a):
@@ -87,8 +99,10 @@ def phase_toolchain():
         log("triton: absent")
     log("torch", torch.__version__, "cuda", torch.version.cuda)
     t0 = time.perf_counter()
-    _build.build("frame_mel")
-    log(f"kernels built in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:  # one nvcc per source
+        for f in [ex.submit(_build.build, name) for name in KERNELS]:
+            f.result()
+    log(f"kernels {', '.join(KERNELS)} built in {time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -186,6 +200,70 @@ def phase_frame_mel(peaks) -> dict:
     return rec
 
 
+def phase_dft_mel(peaks) -> dict:
+    """K2 against its plain version on B=128 windows of frames gathered
+    from a random chunk: the host path's shapes with mel_kernel="pallas"."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ops import dft_mel as dm
+    from softspoken_tpu_torch.ops import mel as melops
+
+    dev = torch.device("cuda")
+    cfg = Config()
+    B, F = cfg.engine.device_batch, 256
+    buf_len = 3_439_800  # the default chunk buffer
+    rng = np.random.default_rng(13)
+    buf = torch.from_numpy(rng.standard_normal(buf_len).astype(np.float32)).to(dev)
+    starts = torch.from_numpy((np.arange(B) * cfg.samples_per_step).astype(np.int32)).to(dev)
+    frames = melops.gather_frames(buf, starts)
+    got = dm.log_mel_from_frames_dft(frames)
+    torch.cuda.synchronize()
+    ref = dm.log_mel_from_frames_dft_ref(frames)
+    err = float((got - ref).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    log(f"dft_mel shape={tuple(got.shape)} max_abs_err={err:.3e} tol={TOL_DFT_MEL:.1e} "
+        f"finite={finite}")
+    if not finite or err > TOL_DFT_MEL or got.shape != (B, 128, F):
+        raise AssertionError("dft_mel disagrees with its plain version")
+
+    ms = cuda_time_ms(lambda: dm.log_mel_from_frames_dft(frames))
+    plain_ms = cuda_time_ms(lambda: dm.log_mel_from_frames_dft_ref(frames), iters=3)
+    gather_ms = cuda_time_ms(lambda: melops.gather_frames(buf, starts))
+    # yardstick: two cuBLAS float32 products (TF32 off) and the power step
+    w, fbank = (torch.from_numpy(t).to(dev) for t in dm.tables())
+    flat = frames.reshape(-1, 512)
+
+    def library():
+        with melops.fp32_matmul():
+            proj = flat @ w
+            re, im = proj[:, :dm.N_BINS], proj[:, dm.N_BINS:]
+            return (re * re + im * im) @ fbank
+
+    library_ms = cuda_time_ms(library)
+    rows = B * F
+    flops = 2 * rows * 512 * 2 * dm.N_BINS + 2 * rows * dm.N_BINS * 128
+    flops_1024 = 2 * rows * 512 * 2048 + 2 * rows * 1024 * 128  # the TPU kernel's bins
+    n_bytes = 4 * (frames.numel() + w.numel() + fbank.numel() + rows * 128)
+    t_ops, t_bytes = flops / peaks["fp32"], n_bytes / peaks["bytes"]
+    rec = {
+        "name": "dft_mel", "route": "cuda",
+        "source": "softspoken_tpu_torch/csrc/dft_mel.cu",
+        "replaces": "softspoken_tpu/ops/pallas_mel.py:59",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+    log(f"dft_mel timing (float32, B={B}, F={F}): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: "
+        f"{flops / 1e9:.2f} GFLOP at the fp32 peak; {flops_1024 / 1e9:.2f} GFLOP over 1024 bins "
+        f"would be {1e3 * flops_1024 / peaks['fp32']:.4f} ms; {n_bytes / 1e6:.1f} MB would be "
+        f"{1e3 * t_bytes:.4f} ms) achieved {flops / ms / 1e9:.2f} TFLOP/s; "
+        f"gather_ms={gather_ms:.4f} (the frames, on the path before the kernel)")
+    del frames, flat, buf, got, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _field_wav(path: str, seconds: float, sr: int, seed: int) -> None:
     """Seeded noise floor with speech-band bursts (modulated 300-3000 Hz
     tones, 2.5 s every 20 s), written as PCM16 mono."""
@@ -202,7 +280,23 @@ def _field_wav(path: str, seconds: float, sr: int, seed: int) -> None:
     wavio.write(path, x, sr, subtype="PCM_16")
 
 
-def phase_end_to_end(work: str) -> dict:
+def _host_batches(det, wav: str) -> "tuple[int, int]":
+    """(windows, batches) the host pipeline dispatches for ``wav``: whole
+    chunks, and the ragged tail padded to whole batches (the planner's
+    formulas)."""
+    from softspoken_tpu_torch.engine.planner import num_windows_for_padded_length
+    from softspoken_tpu_torch.io import internal_length
+
+    cfg = det.cfg
+    n_windows = num_windows_for_padded_length(
+        internal_length(wav, cfg.dsp.sample_rate) + 2 * cfg.pad_samples, cfg)
+    B, chunk_w = cfg.engine.device_batch, det.chunk_windows()
+    full, tail = divmod(n_windows, chunk_w)
+    return n_windows, full * (chunk_w // B) + -(-tail // B)
+
+
+def phase_end_to_end(work: str, wav: str, sr: int, seconds: float) -> dict:
+    """The fused path (slice 1): ``detect`` with the default config."""
     from softspoken_tpu_torch import Config, cli
     from softspoken_tpu_torch.ckpt import fixture_state_dict
     from softspoken_tpu_torch.engine import Detector
@@ -210,13 +304,7 @@ def phase_end_to_end(work: str) -> dict:
     from softspoken_tpu_torch.engine.planner import num_windows_for_padded_length
     from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
 
-    sr, seconds = 32000, 1800.0
-    wav = os.path.join(work, "field_30min_32k.wav")
     csv_path = os.path.join(work, "detections.csv")
-    t0 = time.perf_counter()
-    _field_wav(wav, seconds, sr, seed=11)
-    log(f"wrote {seconds:.0f} s {sr} Hz PCM16 WAV in {time.perf_counter() - t0:.1f} s")
-
     args = cli.build_parser().parse_args(
         ["detect", "--files", wav, "--out", csv_path, "--random-init", "--strict-reference"])
     reset_launch_counts()
@@ -252,7 +340,6 @@ def phase_end_to_end(work: str) -> dict:
     rate = engine.device_only_rate(repeats=4)
     log(f"device_only_rate={rate:.2f} audio-s/wall-s")
     profile_chunks(engine)
-    os.remove(wav)
     return launches
 
 
@@ -280,6 +367,7 @@ def profile_chunks(engine, repeats: int = 2) -> None:
     for ms, _n, key in rows:
         k = key.lower()
         g = ("frame_mel" if "frame_mel" in k else
+             "dft_mel" if "dft_mel" in k else
              "grid" if "indexfunc" in k else
              "layout" if ("nchwtonhwc" in k or "nhwctonchw" in k) else
              "conv" if ("conv" in k or "xmma" in k or "cudnn" in k or "implicit" in k) else
@@ -292,17 +380,16 @@ def profile_chunks(engine, repeats: int = 2) -> None:
         log(f"  {ms:10.3f} ms  x{n:<5d} {key[:110]}")
 
 
-def phase_parity(work: str) -> None:
-    """Parity mode on the card: chunked == unchunked, card == CPU, and the
-    fast path's distance from parity on the same file."""
+def phase_parity(wav: str) -> None:
+    """Parity mode on the card through the fused path: chunked ==
+    unchunked, card == CPU, and the fast path's distance from parity on the
+    same file."""
     from softspoken_tpu_torch import Config
     from softspoken_tpu_torch.ckpt import fixture_state_dict
     from softspoken_tpu_torch.engine import Detector
 
-    wav = os.path.join(work, "field_60s_32k.wav")
-    _field_wav(wav, 60.0, 32000, seed=5)
     sd = fixture_state_dict(0)
-    par = Config().with_engine(precision="parity")
+    par = Config().with_engine(precision="parity", pipeline="fused")
 
     def run(cfg, device=None):
         return Detector(cfg, state_dict=sd, device=device).detect_file_streaming(wav)
@@ -332,7 +419,80 @@ def phase_parity(work: str) -> None:
         f"intervals fast={fast.intervals} parity={whole.intervals}")
     if not np.isfinite(fast.avg_values).all() or len(fast.avg_values) != len(whole.avg_values):
         raise AssertionError("fast-mode grid is not finite or has the wrong length")
-    os.remove(wav)
+
+
+def phase_host_path(work: str, wav: str) -> int:
+    """The host path (slice 2) at full width: ``detect`` with the pipeline
+    and kernel chosen in the --config JSON, in-memory decode (first and
+    second run), then --streaming with the device resampler."""
+    from softspoken_tpu_torch import Config, cli
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+
+    engine = {"pipeline": "host", "mel_kernel": "pallas"}
+    det = Detector(Config().with_engine(**engine), state_dict=fixture_state_dict(0))
+    n_windows, n_batches = _host_batches(det, wav)
+    del det
+
+    def detect(name: str, eng: dict, *flags: str):
+        conf = os.path.join(work, f"{name}.json")
+        with open(conf, "w") as f:
+            json.dump({"engine": eng}, f)
+        args = cli.build_parser().parse_args(
+            ["detect", "--files", wav, "--out", os.path.join(work, f"{name}.csv"),
+             "--random-init", "--strict-reference", "--config", conf, *flags])
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        report = cli.cmd_detect(args)
+        torch.cuda.synchronize()
+        launches = dict(KERNEL_LAUNCHES)
+        if report["files_done"] != 1 or report["errors"]:
+            raise AssertionError(f"host detect {name} failed: {report['errors']}")
+        log(f"host {name}: audio_sec_per_wall_sec={report['audio_sec_per_wall_sec']:.2f} "
+            f"wall_seconds={report['wall_seconds']:.3f} launches={json.dumps(launches)} "
+            f"windows={n_windows} batches={n_batches}")
+        log(f"host {name} stage_seconds:", json.dumps(report["stage_seconds"]))
+        if launches.get("dft_mel", 0) < n_batches:
+            raise AssertionError(f"host {name} did not run the dft_mel kernel on every batch")
+        return launches
+
+    launches = detect("in_memory_first", engine)  # the path's counts for the record
+    detect("in_memory_second", engine)
+    detect("streaming_device_resampler", dict(engine, resample_backend="auto"), "--streaming")
+    return launches.get("dft_mel", 0)
+
+
+def phase_host_parity(wav: str) -> None:
+    """Parity mode through the host path with K2 on the 60 s file: card ==
+    CPU, and streaming (either resampler) == in-memory on the card."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+
+    sd = fixture_state_dict(0)
+    par = Config().with_engine(precision="parity", pipeline="host", mel_kernel="pallas",
+                               device_batch=8, chunk_seconds=12.0)
+    card = Detector(par, state_dict=sd).detect_file(wav)
+    cpu = Detector(par, state_dict=sd, device="cpu").detect_file(wav)
+    d = float(np.abs(card.avg_values - cpu.avg_values).max())
+    log(f"host parity card vs CPU: windows {card.num_windows}/{cpu.num_windows} "
+        f"max_abs_diff={d:.3e} tol=1e-4 intervals_equal={card.intervals == cpu.intervals}")
+    # 1e-4: float32 with TF32 off on both; K2 and cuDNN sum in other orders
+    # than the CPU, which the U-Net amplifies to ~1e-5
+    if (d > 1e-4 or card.intervals != cpu.intervals or card.num_windows != cpu.num_windows
+            or not np.isfinite(card.avg_values).all()):
+        raise AssertionError("host parity run on the card disagrees with the CPU")
+    for backend in ("host", "auto"):
+        det = Detector(par.with_engine(resample_backend=backend), state_dict=sd)
+        stream = det.detect_file_streaming(wav)
+        d = float(np.abs(stream.avg_values - card.avg_values).max())
+        log(f"host parity streaming ({det.resample_backend} resampler) vs in-memory: "
+            f"max_abs_diff={d:.3e} tol=1e-5 intervals_equal={stream.intervals == card.intervals}")
+        # 1e-5: the same program over audio resampled chunk by chunk (and on
+        # the card by a float32 GEMM): float round-off in the samples
+        if d > 1e-5 or stream.intervals != card.intervals:
+            raise AssertionError("host streaming run disagrees with the in-memory one")
 
 
 def main() -> int:
@@ -351,13 +511,25 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
     phase_toolchain()
-    rec = phase_frame_mel(peaks)
+    k1 = phase_frame_mel(peaks)
+    k2 = phase_dft_mel(peaks)
     if not args.kernels:
-        launches = phase_end_to_end(work)
-        rec["launches"] = launches.get("frame_mel", 0)
-        phase_parity(work)
+        sr, seconds = 32000, 1800.0
+        wav = os.path.join(work, "field_30min_32k.wav")
+        wav60 = os.path.join(work, "field_60s_32k.wav")
+        t1 = time.perf_counter()
+        _field_wav(wav, seconds, sr, seed=11)
+        _field_wav(wav60, 60.0, sr, seed=5)
+        log(f"wrote {seconds:.0f} s and 60 s {sr} Hz PCM16 WAVs in "
+            f"{time.perf_counter() - t1:.1f} s")
+        k1["launches"] = phase_end_to_end(work, wav, sr, seconds).get("frame_mel", 0)
+        phase_parity(wav60)
+        k2["launches"] = phase_host_path(work, wav)
+        phase_host_parity(wav60)
+        os.remove(wav)
+        os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [rec]}))
+    log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 """Command line: ``python -m softspoken_tpu_torch detect --files … --out …``.
 
 Runs on the CUDA card by default (``--device cpu`` to run on the CPU).
-Prints a JSON report and exits nonzero when any file failed.
+The pipeline, mel kernel and resampler are chosen in the ``--config`` JSON
+(``{"engine": {"pipeline": "host", "mel_kernel": "pallas"}}``), as with the
+JAX package's CLI.  Prints a JSON report and exits nonzero when any file
+failed.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ def cmd_detect(args) -> Dict:
         file_started=lambda f: print(f"→ {f}", flush=True),
         message=lambda m: print(f"   {m}", flush=True),
     )
-    report = DetectRunner(det, store, cfg).run([os.path.abspath(f) for f in args.files], cb)
+    runner = DetectRunner(det, store, cfg, streaming=args.streaming or None)
+    report = runner.run([os.path.abspath(f) for f in args.files], cb)
     out = {
         "files_done": report.files_done,
         "files_skipped": report.files_skipped,
@@ -77,6 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--break-duration", type=float, help="gap-merge seconds (default 0.5)")
     d.add_argument("--strict-reference", action="store_true",
                    help="reprocess files already in the CSV")
+    d.add_argument("--streaming", action="store_true",
+                   help="force bounded-memory streaming decode")
     d.add_argument("--device", help="torch device (default: the CUDA card)")
     d.set_defaults(func=cmd_detect)
     return p

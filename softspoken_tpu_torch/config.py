@@ -82,13 +82,16 @@ class EngineConfig:
     upload_codec: str = "auto"
     # host wire decimation; only engages on the lossy wires (not ported)
     wire_decimate: str = "auto"
-    # host-pipeline resampler; the host pipeline is not ported yet
+    # the host pipeline's streaming resampler: "host" (scipy polyphase) or
+    # "device" (a polyphase GEMM per chunk on the detector's device);
+    # "auto" = device on CUDA, host elsewhere
     resample_backend: str = "host"
-    # mel frontend: "fused" = the CUDA framing+DFT+mel kernel
-    # (ops/frame_mel.py), "xla" = the plain two-matmul torch chain
-    # (ops/mel.py; the name is kept for config-file compatibility).
-    # "auto" = fused on CUDA in fast mode, the plain chain in parity mode
-    # and on the CPU.  "pallas" (the opt-in DFT→mel kernel) is not ported.
+    # mel frontend: "fused" = the CUDA framing+DFT+mel kernel K1
+    # (ops/frame_mel.py), "pallas" = the float32 DFT→mel CUDA kernel K2 over
+    # gathered frames (ops/dft_mel.py; mel_precision does not apply), "xla" =
+    # the plain two-matmul torch chain (ops/mel.py).  The names are the JAX
+    # package's, kept for config-file compatibility.  "auto" = fused on CUDA
+    # in fast mode, the plain chain in parity mode and on the CPU.
     mel_kernel: str = "auto"
     # DFT product precision: "highest" (fp32), "high" (bf16x3),
     # "default" (one bf16 pass).  "auto" = "highest" in parity mode, else
@@ -98,8 +101,8 @@ class EngineConfig:
     decoder_upsample: str = "auto"
     # 3×3 conv implementation; only "direct" is ported ("auto" resolves to it)
     conv_impl: str = "auto"
-    # streaming pipeline: "fused" (ported) or "host" (not ported);
-    # "auto" = fused on CUDA
+    # detection pipeline: "fused" (engine/fused.py) or "host"
+    # (engine/detector.py); "auto" = fused on CUDA, host elsewhere
     pipeline: str = "auto"
     # unused here: the per-batch forward is a Python loop
     scan_unroll: int = 1

@@ -34,6 +34,23 @@ def window_bin_offset(window_index, step_seconds: float = 0.6) -> np.ndarray:
     )
 
 
+def average_grid_host(mask_logits: np.ndarray, step_seconds: float = 0.6):
+    """The host pipeline's overlap grid: (num_windows, 256) raw logits in
+    window order → (sum_grid, count_grid), float64, sized to the last
+    covered bin."""
+    n = mask_logits.shape[0]
+    if n == 0:
+        return np.zeros(0), np.zeros(0)
+    offs = window_bin_offset(np.arange(n), step_seconds)
+    glen = int(offs[-1]) + mask_logits.shape[1]
+    s = np.zeros(glen, np.float64)
+    c = np.zeros(glen, np.float64)
+    idx = (offs[:, None] + np.arange(mask_logits.shape[1])[None, :]).ravel()
+    np.add.at(s, idx, mask_logits.astype(np.float64).ravel())
+    np.add.at(c, idx, 1.0)
+    return s, c
+
+
 def smooth_grid(avg_values: np.ndarray, width: int) -> np.ndarray:
     """Centered running median over ``width`` (odd) bins, edges replicated."""
     if width <= 1:

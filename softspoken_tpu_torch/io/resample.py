@@ -1,16 +1,22 @@
-"""Polyphase sample-rate conversion as one dense matrix product.
+"""Polyphase sample-rate conversion, on the host and on the device.
 
 Same filter and geometry as the JAX package's ``io/resample.py`` (a
 Kaiser-windowed-sinc design comparable to librosa's kaiser_best, standing in
 for the reference's soxr resampler, ``voice_activity.py:65-67``): the numpy
-and scipy helpers below are copies, and ``polyphase_apply`` is the torch form
-of the traced block matmul.
+and scipy helpers below are copies.  Two paths share the taps:
+
+  * ``resample`` — host, ``scipy.signal.resample_poly`` in float64.  The JAX
+    package prefers its C++ polyphase (``io/native.py``) and falls back to
+    the same scipy call; the two differ by float round-off (~1e-7).
+  * ``polyphase_apply`` — the torch form of the traced block matmul, used
+    by the fused engine and by ``DeviceChunkResampler``.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
+from typing import Callable
 
 import numpy as np
 import scipy.signal
@@ -40,6 +46,24 @@ def design_taps(up: int, down: int) -> np.ndarray:
 def _ratio(orig_sr: int, target_sr: int):
     g = math.gcd(int(orig_sr), int(target_sr))
     return target_sr // g, orig_sr // g
+
+
+def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Resample 1-D (or [..., time]) float audio on the host; the output
+    length is ``ceil(n * target_sr / orig_sr)`` (librosa's convention)."""
+    if orig_sr == target_sr:
+        return np.asarray(x, dtype=np.float32)
+    up, down = _ratio(orig_sr, target_sr)
+    y = scipy.signal.resample_poly(np.asarray(x, dtype=np.float64), up, down,
+                                   axis=-1, window=design_taps(up, down))
+    return y.astype(np.float32)
+
+
+def resampled_length(n: int, orig_sr: int, target_sr: int) -> int:
+    if orig_sr == target_sr:
+        return n
+    up, down = _ratio(orig_sr, target_sr)
+    return -(-(n * up) // down)  # ceil
 
 
 def polyphase_matmul_weights(up: int, down: int):
@@ -104,3 +128,70 @@ def polyphase_apply(x: torch.Tensor, W: torch.Tensor, *, wmin: int, pad_l: int,
     with fp32_matmul():
         Y = X @ W
     return Y.reshape(-1)
+
+
+@lru_cache(maxsize=16)
+def get_device_resampler(orig_sr: int, target_sr: int, out_chunk: int,
+                         device: torch.device) -> "DeviceChunkResampler":
+    """The DeviceChunkResampler for these rates and chunk on ``device``,
+    built once (its filter matrix is uploaded once)."""
+    return DeviceChunkResampler(orig_sr, target_sr, out_chunk, device)
+
+
+class DeviceChunkResampler:
+    """Fixed-geometry device resampler for the host pipeline's streaming
+    decode: per chunk, one upload of the native range, one polyphase GEMM
+    on ``device`` and one fetch.
+
+    Alignment contract: the native read starts at a multiple of ``down``,
+    so chunk outputs land exactly on the whole-file resampling grid (the
+    host chunk path's invariant).  Each call fills a fresh buffer, so one
+    instance may serve several streams.
+    """
+
+    def __init__(self, orig_sr: int, target_sr: int, out_chunk: int,
+                 device: torch.device):
+        self.orig_sr, self.target_sr = orig_sr, target_sr
+        self.up, self.down = _ratio(orig_sr, target_sr)
+        self.out_chunk = out_chunk
+        self.device = torch.device(device)
+        (W, self.wmin, self.n_blocks, self.n_copies,
+         self.pad_l, self.in_len) = polyphase_block_geometry(self.up, self.down, out_chunk)
+        self.width = W.shape[0]
+        self.W = torch.from_numpy(W).to(self.device)
+
+    def resample_range(self, read_native: Callable[[int, int], np.ndarray],
+                       native_frames: int, out_pos: int, out_n: int) -> np.ndarray:
+        """Internal-rate samples [out_pos, out_pos + out_n).
+
+        ``read_native(start, frames)`` returns float32 mono native samples,
+        clamped at EOF; the zero fill at the edges matches the whole-file
+        resample's zero padding.
+        """
+        if out_n > self.out_chunk:
+            raise ValueError(f"out_n={out_n} exceeds the chunk of {self.out_chunk}")
+        up, down = self.up, self.down
+        # read from rs (a multiple of down), block 0 of a local grid whose
+        # first output is global index rs·up/down
+        rs = max(0, (out_pos * down) // up - 2 * down)
+        rs -= rs % down
+        lo = out_pos - (rs * up) // down
+        # RuntimeError, not assert: these guard against silently
+        # time-shifted audio and must survive python -O
+        if not 0 <= lo <= 4 * up:
+            raise RuntimeError(f"polyphase alignment violated: lo={lo} up={up}")
+        if lo + out_n > self.n_blocks * up:
+            raise RuntimeError(f"polyphase range violated: lo={lo} out_n={out_n} "
+                               f"cap={self.n_blocks * up}")
+        cuda = self.device.type == "cuda"
+        host = torch.zeros(self.in_len, dtype=torch.float32, pin_memory=cuda)
+        # native sample rs + i sits at pad_l + i; the filter's left context
+        # (indices below rs) is real audio too
+        left = min(rs, self.pad_l)
+        re = min(native_frames, rs + self.in_len - self.pad_l)
+        got = read_native(rs - left, re - (rs - left))
+        host.numpy()[self.pad_l - left: self.pad_l - left + len(got)] = got
+        y = polyphase_apply(host.to(self.device, non_blocking=True), self.W,
+                            wmin=self.wmin, pad_l=self.pad_l, n_blocks=self.n_blocks,
+                            n_copies=self.n_copies, down=down, width=self.width)
+        return y[lo: lo + out_n].cpu().numpy()

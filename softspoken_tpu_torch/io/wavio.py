@@ -12,7 +12,9 @@ WAV and RF64 files, plain or WAVE_FORMAT_EXTENSIBLE:
 Integer PCM is scaled by 1/2**(bits-1) into [-1, 1) (libsndfile's
 convention, as the reference's soundfile/librosa reads did).  Other
 containers and codecs (FLAC, MP3, Opus, AIFF, ADPCM, G.711, big-endian RIFX)
-raise ``NotImplementedError``: their readers are a later slice of the port.
+raise ``NotImplementedError`` naming the format (``sniff_format`` reads
+their magic): their readers are a later slice of the port.  Any other file
+is a malformed WAV (``WavFormatError``).
 """
 
 from __future__ import annotations
@@ -57,10 +59,35 @@ class WavInfo:
         return self.frames / float(self.samplerate)
 
 
+def sniff_format(head: bytes) -> Optional[str]:
+    """The name of a non-WAV audio format from a file's first bytes, or
+    None.  Those formats' readers are a later slice of the port."""
+    if head[:4] == b"fLaC":
+        return "FLAC"
+    if head[:4] == b"OggS":
+        return "Ogg Opus" if b"OpusHead" in head else "Ogg Vorbis"
+    if head[:4] == b"FORM" and head[8:12] in (b"AIFF", b"AIFC"):
+        return "AIFF"
+    if head[:16] == b"riff\x2e\x91\xcf\x11\xa5\xd6\x28\xdb\x04\xc1\x00\x00":
+        return "Sony Wave64"
+    if head[:4] == b"caff":
+        return "CAF"
+    if head[:4] == b".snd":
+        return "Sun AU"
+    if head[:8] == b"NIST_1A\n":
+        return "NIST SPHERE"
+    if head[:3] == b"ID3" or (len(head) > 1 and head[0] == 0xFF and head[1] & 0xE0 == 0xE0):
+        return "MP3"
+    return None
+
+
 def _parse_header(f: BinaryIO) -> WavInfo:
     riff = f.read(12)
     if len(riff) < 12 or riff[8:12] != b"WAVE" or riff[:4] not in (b"RIFF", b"RF64", b"RIFX"):
-        raise NotImplementedError(f"not a RIFF/WAVE file: {_LATER}")
+        fmt = sniff_format(riff + f.read(52))
+        if fmt is not None:
+            raise NotImplementedError(f"{fmt} file: {_LATER}")
+        raise WavFormatError("not a RIFF/WAVE file")
     if riff[:4] == b"RIFX":
         raise NotImplementedError(f"big-endian RIFX WAV: {_LATER}")
     rf64_size = None

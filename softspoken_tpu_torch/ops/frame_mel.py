@@ -28,16 +28,9 @@ NAME = "frame_mel"
 _MODE_ID = {"highest": 0, "high": 1, "default": 2}
 
 
-@lru_cache(maxsize=1)
 def tables() -> "tuple[np.ndarray, np.ndarray]":
     """(W (512, 1536) = [cos | sin] over 768 bins, fb (768, 128)), float32."""
-    w_full = melops.dft_matrices()
-    fb_full = melops.mel_filterbank()
-    if not np.all(fb_full[N_FREQS_PAD:, :] == 0.0):  # the truncation must be exact
-        raise AssertionError("mel filterbank support exceeds N_FREQS_PAD")
-    w = np.concatenate([w_full[:, :N_FREQS_PAD],
-                        w_full[:, melops.N_FREQS: melops.N_FREQS + N_FREQS_PAD]], axis=1)
-    return np.ascontiguousarray(w), np.ascontiguousarray(fb_full[:N_FREQS_PAD])
+    return melops.truncated_tables(N_FREQS_PAD)
 
 
 def _check_args(mode: str, out_dtype: torch.dtype) -> None:

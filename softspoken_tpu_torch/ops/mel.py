@@ -93,6 +93,18 @@ def dft_matrices() -> np.ndarray:
     )
 
 
+@lru_cache(maxsize=4)
+def truncated_tables(n_bins: int) -> "tuple[np.ndarray, np.ndarray]":
+    """(W (512, 2·n_bins) = [cos | sin] over the first n_bins DFT bins,
+    fb (n_bins, 128)), float32.  Raises unless the filterbank is exactly
+    zero from bin n_bins on, so that the truncation drops only zero terms."""
+    w_full, fb_full = dft_matrices(), mel_filterbank()
+    if not np.all(fb_full[n_bins:, :] == 0.0):
+        raise ValueError(f"mel filterbank support exceeds {n_bins} bins")
+    w = np.concatenate([w_full[:, :n_bins], w_full[:, N_FREQS: N_FREQS + n_bins]], axis=1)
+    return np.ascontiguousarray(w), np.ascontiguousarray(fb_full[:n_bins])
+
+
 def frames_from_window(w: torch.Tensor) -> torch.Tensor:
     """(..., ≥66150) windows → (..., 256, 512) STFT frames.
 
@@ -109,15 +121,28 @@ def frames_from_window(w: torch.Tensor) -> torch.Tensor:
 def gather_frames(waveform: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     """(N,) buffer + (B,) window starts → (B, 256, 512) frames.
 
-    Every window must lie inside the buffer; the check raises instead of
-    reading a clamped, shifted window.
+    Every window must lie inside the buffer.  On the CPU the check raises;
+    on the card a window outside comes out as NaN, as in the frame_mel
+    kernel, so that the check never waits for the device.  Neither reads a
+    clamped, shifted window as if it were real.
     """
     starts = starts.to(torch.int64)
-    if starts.numel() and (int(starts.min()) < 0
-                           or int(starts.max()) + WINDOW_SAMPLES > waveform.shape[0]):
-        raise ValueError("window start out of the buffer's range")
+    n = waveform.shape[0]
+    if starts.numel() and n < WINDOW_SAMPLES:
+        raise ValueError("buffer shorter than one window")
+    if waveform.device.type == "cpu":
+        if starts.numel() and (int(starts.min()) < 0
+                               or int(starts.max()) + WINDOW_SAMPLES > n):
+            raise ValueError("window start out of the buffer's range")
+        bad = None
+    else:
+        bad = (starts < 0) | (starts + WINDOW_SAMPLES > n)
+        starts = torch.where(bad, 0, starts)
     idx = starts[:, None] + torch.arange(WINDOW_SAMPLES, device=waveform.device)
-    return frames_from_window(waveform[idx])
+    frames = frames_from_window(waveform[idx])
+    if bad is not None:
+        frames = frames.masked_fill(bad[:, None, None], float("nan"))
+    return frames
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from softspoken_tpu_torch.ops import KERNEL_LAUNCHES
+from softspoken_tpu_torch.ops import dft_mel as dm
 from softspoken_tpu_torch.ops import frame_mel as fm
+from softspoken_tpu_torch.ops import mel as melops
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +59,18 @@ def test_frame_mel_kernel_marks_out_of_range_windows():
     assert torch.isnan(fm.log_mel_windows_fused(buf, bad)).all()
 
 
+def test_gather_marks_out_of_range_windows_on_the_card():
+    """On the card the gather does not wait for the device to check the
+    starts: a window outside the buffer comes out NaN, the others exact."""
+    _need_card()
+    buf, starts = _buf_and_starts()
+    bad = torch.tensor([0, buf.shape[0] - 66149, -1, 13230], dtype=torch.int32, device="cuda")
+    frames = melops.gather_frames(buf, bad)
+    assert torch.isnan(frames[1:3]).all() and not torch.isnan(frames[[0, 3]]).any()
+    np.testing.assert_array_equal(frames[[0, 3]].cpu().numpy(),
+                                  melops.gather_frames(buf.cpu(), bad[[0, 3]].cpu()).numpy())
+
+
 def test_frame_mel_wrapper_rejects_wrong_layouts():
     _need_card()
     buf, starts = _buf_and_starts()
@@ -66,3 +80,66 @@ def test_frame_mel_wrapper_rejects_wrong_layouts():
         fm.log_mel_windows_fused(buf, starts.long())
     with pytest.raises(ValueError):
         fm.log_mel_windows_fused(buf, starts.cpu())
+
+
+def _frames(b=3, f=256, seed=11):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-0.5, 0.5, (b, f, 512)).astype(np.float32)).cuda()
+
+
+@pytest.mark.parametrize("b,f", [(3, 256), (4, 64), (64, 100)], ids=["F256", "F64", "F100-unaligned"])
+def test_dft_mel_kernel_matches_plain_version(b, f):
+    """float32 on both sides, TF32 off in the plain version: only the
+    summation order differs (~1e-6 on values below ~4).  F=100 takes the
+    kernel's scalar store path (F % 8 != 0: a warp's rows span two windows)."""
+    _need_card()
+    frames = _frames(b, f)
+    before = KERNEL_LAUNCHES[dm.NAME]
+    got = dm.log_mel_from_frames_dft(frames)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES[dm.NAME] == before + 1
+    assert got.shape == (b, 128, f) and got.dtype == torch.float32
+    ref = dm.log_mel_from_frames_dft_ref(frames)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
+
+
+def test_dft_mel_windows_entry_point_launches_once():
+    _need_card()
+    buf, starts = _buf_and_starts()
+    before = KERNEL_LAUNCHES[dm.NAME]
+    got = dm.log_mel_windows_dft(buf, starts[:4])
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES[dm.NAME] == before + 1
+    frames = melops.gather_frames(buf, starts[:4])
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               dm.log_mel_from_frames_dft_ref(frames).cpu().numpy(), atol=1e-4)
+
+
+def test_dft_mel_wrapper_rejects_wrong_inputs():
+    _need_card()
+    frames = _frames(2, 256)
+    before = KERNEL_LAUNCHES[dm.NAME]
+    for bad in (frames.double(), frames.half(), frames.transpose(0, 1),
+                frames[:, :, :256], frames[:, :100],
+                torch.empty(frames.shape, device="meta")):
+        with pytest.raises(ValueError):
+            dm.log_mel_from_frames_dft(bad)
+    assert KERNEL_LAUNCHES[dm.NAME] == before
+
+
+def test_device_resampler_on_the_card_matches_the_host(tmp_path):
+    """One polyphase GEMM per chunk on the card (float32, TF32 off) against
+    scipy's float64 polyphase: float round-off."""
+    _need_card()
+    from softspoken_tpu_torch.io import load_audio, stream_chunks, wavio
+
+    x = np.random.default_rng(0).uniform(-0.6, 0.6, 32000 * 12).astype(np.float32)
+    p = str(tmp_path / "r.wav")
+    wavio.write(p, x, 32000, subtype="PCM_16")
+    dev = np.concatenate([c.data for c in stream_chunks(p, 50000, backend="device",
+                                                        device="cuda")])
+    host = np.concatenate([c.data for c in stream_chunks(p, 50000, backend="host")])
+    assert dev.shape == host.shape
+    np.testing.assert_allclose(dev, host, atol=1e-5)
+    np.testing.assert_allclose(dev, load_audio(p)[0], atol=1e-5)

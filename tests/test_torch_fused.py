@@ -3,7 +3,9 @@ JAX package's fused pipeline on the CPU, at full model width and short audio
 (device_batch=4, short chunks, as tests/test_fused.py).
 
 Fused is held against fused only: the host pipeline differs at the ±3 s pad
-joins by design (softspoken_tpu/engine/fused.py:17-22).
+joins by design (softspoken_tpu/engine/fused.py:17-22); test_torch_host.py
+holds the host pipeline.  "auto" is host on the CPU, so every case here pins
+pipeline="fused".
 """
 
 import csv
@@ -115,7 +117,7 @@ def test_cli_writes_the_reference_csv(tmp_path):
     p = _wav(tmp_path, 22050, 8.0, seed=9)
     out = str(tmp_path / "d.csv")
     conf = tmp_path / "c.json"
-    conf.write_text('{"engine": {"chunk_seconds": 6.0}}')
+    conf.write_text('{"engine": {"chunk_seconds": 6.0, "pipeline": "fused"}}')
     args = ["--out", out, "--random-init", "--device-batch", "4", "--device", "cpu",
             "--config", str(conf)]
     assert cli.main(["detect", "--files", p, "--precision", "parity", *args]) == 0
@@ -140,10 +142,10 @@ def test_cli_fails_on_an_unreadable_file(tmp_path):
 
 
 @pytest.mark.parametrize("eng", [
-    dict(upload_codec="mulaw8"), dict(chunk_checkpoint_every=2), dict(pipeline="host"),
-], ids=["mulaw8-wire", "journal", "host-pipeline"])
+    dict(upload_codec="mulaw8"), dict(chunk_checkpoint_every=2),
+], ids=["mulaw8-wire", "journal"])
 def test_later_slices_raise(tmp_path, eng):
     p = _wav(tmp_path, 22050, 1.0)
     with pytest.raises(NotImplementedError):
-        Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
-                 device="cpu").detect_file_streaming(p)
+        Detector(Config().with_engine(pipeline="fused", **eng),
+                 state_dict=fixture_state_dict(0), device="cpu").detect_file_streaming(p)
