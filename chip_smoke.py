@@ -6,10 +6,14 @@
 Phases:
   1. device and toolchain: the card's name and power limit, nvcc/triton,
      and the kernels built from ``softspoken_tpu_torch/csrc``, one nvcc per
-     source, all started together (build seconds)
+     source, all started together (build seconds); then the tensor-core
+     instructions (HGMMA = wgmma, HMMA = mma.sync) that ``cuobjdump -sass``
+     finds in each kernel instance of each library: an instance without any
+     fails the run
   2. every kernel against its plain PyTorch version at its path's shapes,
-     with its stated tolerance, and its timing beside the bound: K1
-     frame_mel (fused path), K2 dft_mel (host path, mel_kernel="pallas")
+     with its stated tolerance, and its timing beside the bound (K1 in all
+     three modes) with the achieved TFLOP/s: K1 frame_mel (fused path), K2
+     dft_mel (host path, mel_kernel="pallas")
   3. the fused path: ``detect`` on a 30-minute 32 kHz PCM16 WAV in fast
      mode (launch counts reset just before, read just after), then
      parity-mode checks: chunked == unchunked on the card, and card == CPU
@@ -47,15 +51,67 @@ PEAKS = {
     "pcie": {"bytes": 2.0e12, "fp32": 51.2e12, "bf16": 756e12},
 }
 # frame_mel tolerances, kernel vs its plain version on the same card and
-# inputs: both round the same operands the same way, so only the summation
-# order differs (~1e-6 relative on values below ~4); a bf16 output may then
-# round one way or the other: one bf16 ulp below 4 is 2**-6.
+# inputs.  "default" and "high": both round the same operands the same way,
+# so only the summation order differs (~1e-6 relative on values below ~4).
+# "highest": the plain version is a float32 product, the kernel the six-pass
+# bf16 split, which drops terms of weight 2^-24 (~5e-6 measured).  A bf16
+# output may then round one way or the other: one bf16 ulp below 4 is 2**-6.
 TOL_F32 = 1e-4
 TOL_BF16 = 2.0 ** -6
-# dft_mel (K2) against its plain version: float32 operands and sums on both
-# sides, TF32 off in the plain version, so only the summation order differs
+# dft_mel (K2) against its plain version: float32 (TF32 off) against the
+# six-pass split, as "highest" above
 TOL_DFT_MEL = 1e-4
 KERNELS = ("frame_mel", "dft_mel")
+MEL_PASSES = 6  # the mel product is the six-pass bf16 split in every mode
+
+
+def mel_chain_bound(peaks, rows: int, dft_passes: int, n_bytes: int) -> dict:
+    """The least time the card could take for ``rows`` frames of the chain
+    DFT (2·rows·512·1536 FLOP a pass) → power → mel (2·rows·768·128 a pass),
+    by either of two routes, and the bytes' time:
+      cuda_cores_mel: the DFT's ``dft_passes`` bf16 passes on the tensor cores
+        (0 passes: the DFT as float32 FMA on the CUDA cores too) and the mel
+        product as exact float32 FMA; the two units overlap
+      tensor_cores: every product on the tensor cores, the float32 class as
+        six bf16 passes
+    ``bound_ms`` is the smaller route (no kernel may beat it), or the bytes."""
+    dft, mel = 2 * rows * 512 * 1536, 2 * rows * 768 * 128
+    if dft_passes:
+        t_cc = max(dft * dft_passes / peaks["bf16"], mel / peaks["fp32"])
+    else:
+        t_cc = (dft + mel) / peaks["fp32"]
+    t_tc = (dft * (dft_passes or 6) + mel * MEL_PASSES) / peaks["bf16"]
+    t_ops, t_bytes = min(t_cc, t_tc), n_bytes / peaks["bytes"]
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "cuda_cores_mel_ms": 1e3 * t_cc, "tensor_cores_ms": 1e3 * t_tc,
+            "bytes_ms": 1e3 * t_bytes, "flop": dft + mel,
+            "issued_flop": dft * (dft_passes or 6) + mel * MEL_PASSES}
+
+
+def bound_text(b: dict, ms: float) -> str:
+    return (f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}; all on the tensor cores "
+            f"{b['tensor_cores_ms']:.4f}, mel as float32 FMA {b['cuda_cores_mel_ms']:.4f}, "
+            f"bytes {b['bytes_ms']:.4f}) achieved {b['flop'] / ms / 1e9:.2f} TFLOP/s of the "
+            f"function, {b['issued_flop'] / ms / 1e9:.2f} TFLOP/s of bf16 passes issued")
+
+
+def tensor_core_counts(lib: str) -> dict:
+    """{kernel instance: (HGMMA, HMMA) instruction counts} from the SASS of
+    a built library."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, timeout=300,
+                       check=True)
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn and "HGMMA" in line:
+            counts[fn][0] += 1
+        elif fn and "HMMA" in line:
+            counts[fn][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def log(*a):
@@ -87,7 +143,9 @@ def cuda_time_ms(fn, warmup=3, iters=10, reps=5) -> float:
 
 
 # ---------------------------------------------------------------------------
-def phase_toolchain():
+def phase_toolchain() -> dict:
+    """Builds the kernels; returns {kernel: tensor-core instructions in its
+    library}, having checked that every kernel instance has some."""
     from softspoken_tpu_torch.ops import _build
 
     log("nvcc:", shutil.which("nvcc") or
@@ -104,9 +162,23 @@ def phase_toolchain():
             f.result()
     log(f"kernels {', '.join(KERNELS)} built in {time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  [{name}] {line.strip()}")
+        lines = text.splitlines()
+        # C7519 (a warpgroup.arrive the compiler adds before a wgmma whose A
+        # operand comes from registers) is routine: counted, not printed
+        log(f"  [{name}] ptxas C7519 notes: {sum('C7519' in ln for ln in lines)}")
+        for line in lines:
+            if "C7519" not in line and any(
+                    k in line.lower() for k in ("used", "spill", "error", "warning", "c75")):
+                log(f"  [{name}] {line.strip()[:200]}")
+    totals = {}
+    for name in KERNELS:
+        per_fn = tensor_core_counts(_build.lib_path(name))
+        for fn, (hgmma, hmma) in per_fn.items():
+            log(f"  [{name}] sass {fn[:120]}: HGMMA={hgmma} HMMA={hmma}")
+        if not per_fn or any(h + m == 0 for h, m in per_fn.values()):
+            raise AssertionError(f"{name}: a kernel instance has no tensor-core instruction")
+        totals[name] = sum(h + m for h, m in per_fn.values())
+    return totals
 
 
 def phase_frame_mel(peaks) -> dict:
@@ -164,37 +236,30 @@ def phase_frame_mel(peaks) -> dict:
         return (re * re + im * im) @ fb_l
 
     library_ms = cuda_time_ms(library)
-    out_bytes = B * 128 * 256 * (2 if out_dtype == torch.bfloat16 else 4)
-    n_bytes = buf_len * 4 + B * 4 + w.numel() * 4 * (2 if mode == "high" else 1) \
-        + fbank.numel() * 4 + out_bytes
-    dft = 2 * B * 256 * 512 * 1536 * (3 if mode == "high" else 1)
-    mel = 2 * B * 256 * 768 * 128
-    # the mel product is exact float32 in every mode, so its peak is the
-    # non-tensor fp32 rate; in bf16 modes the DFT runs on the tensor cores,
-    # a separate unit, so the two overlap and the larger time bounds
-    if mode == "highest":
-        t_ops = (dft + mel) / peaks["fp32"]
-    else:
-        t_ops = max(dft / peaks["bf16"], mel / peaks["fp32"])
-    t_bytes = n_bytes / peaks["bytes"]
+    table_bytes = {m: fm._device_tables(dev, m).numel() * 2 for m in fm._MODE_PARTS}
+
+    def bound(m: str, dt: torch.dtype) -> dict:
+        n_bytes = (buf_len * 4 + B * 4 + table_bytes[m]
+                   + B * 128 * 256 * (2 if dt == torch.bfloat16 else 4))
+        return mel_chain_bound(peaks, B * 256, {"default": 1, "high": 3, "highest": 0}[m], n_bytes)
+
+    b = bound(mode, out_dtype)
     # launches stays null unless the main path runs (phase 3)
     rec = {
         "name": "frame_mel", "route": "cuda",
         "source": "softspoken_tpu_torch/csrc/frame_mel.cu",
         "replaces": "softspoken_tpu/ops/pallas_frame_mel.py:204",
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": library_ms, "tensor_cores": True,
     }
     log(f"frame_mel timing (mode={mode}, out={str(out_dtype)[6:]}, B={B}): "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}; dft {1e3 * dft / peaks['bf16']:.4f} "
-        f"at the bf16 tensor peak, mel {1e3 * mel / peaks['fp32']:.4f} at the fp32 peak, "
-        f"all at the bf16 tensor peak {1e3 * (dft + mel) / peaks['bf16']:.4f})")
+        + bound_text(b, ms))
     for m in ("highest", "high"):
-        log(f"frame_mel timing mode={m} out=float32: kernel_ms="
-            f"{cuda_time_ms(lambda: fm.log_mel_windows_fused(buf, starts, m)):.4f}")
+        t = cuda_time_ms(lambda: fm.log_mel_windows_fused(buf, starts, m))
+        log(f"frame_mel timing mode={m} out=float32: kernel_ms={t:.4f} "
+            + bound_text(bound(m, torch.float32), t))
     del frames, buf
     torch.cuda.empty_cache()
     return rec
@@ -240,24 +305,21 @@ def phase_dft_mel(peaks) -> dict:
 
     library_ms = cuda_time_ms(library)
     rows = B * F
-    flops = 2 * rows * 512 * 2 * dm.N_BINS + 2 * rows * dm.N_BINS * 128
     flops_1024 = 2 * rows * 512 * 2048 + 2 * rows * 1024 * 128  # the TPU kernel's bins
-    n_bytes = 4 * (frames.numel() + w.numel() + fbank.numel() + rows * 128)
-    t_ops, t_bytes = flops / peaks["fp32"], n_bytes / peaks["bytes"]
+    n_bytes = 4 * (frames.numel() + rows * 128) + 2 * dm._device_tables(dev).numel()
+    b = mel_chain_bound(peaks, rows, 0, n_bytes)  # float32 class: FMA, or six bf16 passes
     rec = {
         "name": "dft_mel", "route": "cuda",
         "source": "softspoken_tpu_torch/csrc/dft_mel.cu",
         "replaces": "softspoken_tpu/ops/pallas_mel.py:59",
         "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": library_ms, "tensor_cores": True,
     }
-    log(f"dft_mel timing (float32, B={B}, F={F}): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}: "
-        f"{flops / 1e9:.2f} GFLOP at the fp32 peak; {flops_1024 / 1e9:.2f} GFLOP over 1024 bins "
-        f"would be {1e3 * flops_1024 / peaks['fp32']:.4f} ms; {n_bytes / 1e6:.1f} MB would be "
-        f"{1e3 * t_bytes:.4f} ms) achieved {flops / ms / 1e9:.2f} TFLOP/s; "
+    log(f"dft_mel timing (float32 class, B={B}, F={F}): kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} " + bound_text(b, ms)
+        + f"; {flops_1024 / 1e9:.2f} GFLOP over the TPU kernel's 1024 bins would be "
+        f"{1e3 * flops_1024 / peaks['fp32']:.4f} ms as float32 FMA; "
         f"gather_ms={gather_ms:.4f} (the frames, on the path before the kernel)")
     del frames, flat, buf, got, ref
     torch.cuda.empty_cache()
@@ -366,8 +428,8 @@ def profile_chunks(engine, repeats: int = 2) -> None:
     groups = {}
     for ms, _n, key in rows:
         k = key.lower()
-        g = ("frame_mel" if "frame_mel" in k else
-             "dft_mel" if "dft_mel" in k else
+        g = ("frame_mel" if ("mel_core_kernel" in k and "windowloader" in k) else
+             "dft_mel" if ("mel_core_kernel" in k and "rowloader" in k) else
              "grid" if "indexfunc" in k else
              "layout" if ("nchwtonhwc" in k or "nhwctonchw" in k) else
              "conv" if ("conv" in k or "xmma" in k or "cudnn" in k or "implicit" in k) else
@@ -510,9 +572,13 @@ def main() -> int:
     work = os.path.join(HERE, "build", "softspoken_tpu_torch", "smoke")
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
-    phase_toolchain()
+    tc = phase_toolchain()
     k1 = phase_frame_mel(peaks)
     k2 = phase_dft_mel(peaks)
+    for rec in (k1, k2):
+        rec["tensor_core_instructions"] = tc[rec["name"]]
+        if rec["tensor_cores"] and not rec["tensor_core_instructions"]:
+            raise AssertionError(f"{rec['name']} claims the tensor cores but its SASS shows none")
     if not args.kernels:
         sr, seconds = 32000, 1800.0
         wav = os.path.join(work, "field_30min_32k.wav")

@@ -1,4 +1,4 @@
-// Framing + windowed DFT + mel + log compression, straight from a chunk buffer.
+// Framing + windowed DFT + mel + log compression, straight from a chunk buffer (K1).
 //
 // Replaces: softspoken_tpu/ops/pallas_frame_mel.py::log_mel_windows_fused
 // (the Pallas TPU kernel `_kernel` plus its XLA-side `_frame0`).
@@ -9,216 +9,114 @@
 //   proj    = frame @ W, W = (512, 1536) Hann-folded [cos | sin] over the
 //             first 768 DFT bins (the mel weight is zero above bin 743)
 //   power   = re^2 + im^2                                      (768 bins)
-//   mel     = power @ fb, fb = (768, 128), always float32
+//   mel     = power @ fb, fb = (768, 128), float32 class in every mode
 //   out[b, m, f] = sqrt(log10(mel + 1))                        float32 or bf16
-// DFT precision modes (template MODE):
-//   0 "highest": float32 FMA on float32 operands
-//   1 "high":    bf16x3 split, x_hi*w_hi + x_hi*w_lo + x_lo*w_hi (the JAX
-//                kernel's _dft_dot_bf16 with passes=3)
-//   2 "default": operands rounded to bf16, float32 accumulation
-// Products of bf16-rounded operands are exact in float32, so the modes differ
-// from a tensor-core product only in summation order.
-//
-// What dropped from the TPU kernel: the one-hot permutation matmuls that
-// aligned a dynamic lane offset (a block here simply loads from buf + s), the
-// double-buffered DMA (plain coalesced loads into shared memory), and the
-// separate frame-0 pass (reflect indexing is done while staging).
+// DFT precision modes = bf16 parts of the product (mel_core.cuh):
+//   1 part  "default": operands rounded to bf16, one pass
+//   2 parts "high":    x_hi*w_hi + x_lo*w_hi + x_hi*w_lo (the JAX kernel's
+//                      _dft_dot_bf16 with passes=3)
+//   3 parts "highest": six passes of the exact three-way split, float32 class
+//                      (the TPU's Precision.HIGHEST is the same construction)
 //
 // Bound on an H100 SXM (B = 128 windows, the fused engine's batch): the DFT is
-// 2*128*256*512*1536 = 51.5 GFLOP and the mel product 2*128*256*768*128 =
-// 6.4 GFLOP, against ~26 MB of compulsory traffic (13.8 MB chunk buffer,
-// 3.1 MB + 0.4 MB tables, 8.4 MB bf16 or 16.8 MB f32 out; ~8 us).  It is
-// compute-bound: ~58 us with every FLOP at the bf16 tensor-core peak
-// (989 TFLOP/s), ~0.86 ms at the float32 non-tensor peak (67 TFLOP/s).
-// Since the mel product stays exact float32, its 6.4 GFLOP at the non-tensor
-// peak (~96 us) bounds the bf16 modes; chip_smoke.py prints all three.
+// 2*128*256*512*1536 = 51.5 GFLOP a pass and the mel product 6.4 GFLOP a
+// pass, against ~26 MB of compulsory traffic (~8 us): bound by operations.
+// "default" with the mel product's six passes at the bf16 tensor peak
+// (989 TFLOP/s) is 0.091 ms; "highest" 6 x 58.0 GFLOP is 0.351 ms.
 //
-// What this simple design leaves: it runs on the CUDA cores in every mode
-// (no mma/wgmma, no TMA), and each block re-reads W from L2.  One block owns
-// (window, 16-frame tile): it stages the tile's 16 x 512 frame matrix in
-// shared memory, each of 256 threads accumulates re and im of 3 bins for the
-// 16 frames in registers, the power goes back to shared memory, then each
-// thread forms 8 of the tile's 16 x 128 mel values and the tile is stored
-// transposed to (B, 128, 256).
+// Design (the core is mel_core.cuh; this file is the loader).  A block owns
+// 128 consecutive frames of one window, and frames overlap by half, so the
+// loader uses the hop-block identity instead of overlapping rows: with
+// Blk[0] = reverse(w[1:257]) and Blk[1+i] = w[256*i : 256*(i+1)], frame f is
+// Blk[f] followed by Blk[f+1], frame 0's reflect pad included.  A tile is
+// 129 blocks of 256 samples: each sample is read from device memory once
+// and stored once.  Block rows are padded to 264 floats so that the eight
+// frames a warp reads for its A fragment fall into distinct banks.  The TPU
+// kernel's one-hot permutation matmuls (a dynamic lane shift) have no
+// counterpart: a block simply reads from buf + s, which is only 4-byte
+// aligned, hence 4-byte asynchronous copies (cp.async) and not a bulk copy.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "mel_core.cuh"
 
 namespace {
 
 constexpr int kWindow = 66150;   // samples per 3 s window at 22050 Hz
 constexpr int kFrames = 256;
-constexpr int kWin = 512;        // frame length
 constexpr int kHop = 256;
-constexpr int kBins = 768;       // DFT bins computed (mel support ends at 743)
-constexpr int kCols = 2 * kBins; // [cos | sin]
-constexpr int kMels = 128;
-constexpr int kTile = 16;        // frames per block
-constexpr int kThreads = 256;
-constexpr int kBinsPerThread = kBins / kThreads;         // 3
-constexpr int kMelsPerThread = kTile * kMels / kThreads;  // 8
+constexpr int kTileFrames = 128;
+constexpr int kBlkLd = kHop + 8; // padded hop block
 
-static_assert(kBins % kThreads == 0, "bins must split evenly over threads");
-static_assert(kTile * kBins * 4 <= 48 * 1024, "power tile must fit static smem");
+template <bool OUT_BF16>
+struct WindowLoader {
+  static constexpr int kRows = kTileFrames;
+  static constexpr int kXFloats = (kTileFrames + 1) * kBlkLd;
+  const float* buf;
+  long long buf_len;
+  const int* starts;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <int MODE, bool OUT_BF16>
-__global__ void __launch_bounds__(kThreads, 1)
-frame_mel_kernel(const float* __restrict__ buf, long long buf_len,
-                 const int* __restrict__ starts,
-                 const float* __restrict__ w_hi,   // (512, 1536)
-                 const float* __restrict__ w_lo,   // (512, 1536), MODE 1 only
-                 const float* __restrict__ fb,     // (768, 128)
-                 void* __restrict__ out) {         // (B, 128, 256)
-  // one buffer, three lives: frames (16 x 512), power (16 x 768), out tile
-  __shared__ __align__(16) float smem[kTile * kBins];
-  const int tid = threadIdx.x;
-  const int f0 = blockIdx.x * kTile;
-  const int b = blockIdx.y;
-  const long long s = starts[b];
-  const bool in_range = s >= 0 && s + kWindow <= buf_len;
-
-  // ---- stage the tile's frames (reflect for frame 0) ----
-  float* xs = smem;
-  for (int i = tid; i < kTile * kWin; i += kThreads) {
-    const int f = f0 + i / kWin;
-    const int j = i % kWin;
-    const long long off = (f == 0) ? (long long)abs(j - kHop)
-                                   : (long long)(f - 1) * kHop + j;
-    float v = in_range ? buf[s + off] : 0.0f;
-    if (MODE == 2) v = bf16_round(v);
-    xs[i] = v;
+  __device__ __forceinline__ bool stage(float* xs, int tile, int tid) const {
+    const long long s = starts[tile >> 1];
+    const bool in_range = s >= 0 && s + kWindow <= buf_len;
+    const int f0 = (tile & 1) * kTileFrames;
+    const float* w = buf + (in_range ? s : 0);
+    for (int i = tid; i < (kTileFrames + 1) * kHop; i += mel_core::kConsumerThreads) {
+      const int blk = i >> 8, j = i & (kHop - 1);
+      const int gb = f0 + blk;  // hop block of the window; 0 is the reflected one
+      const int src = gb == 0 ? kHop - j : (gb - 1) * kHop + j;
+      if (in_range) mel_core::cp_async4(xs + blk * kBlkLd + j, w + src);
+      else xs[blk * kBlkLd + j] = 0.0f;
+    }
+    mel_core::cp_async_wait_all();
+    return in_range;
   }
-  __syncthreads();
-
-  // ---- DFT: re/im of bins tid, tid+256, tid+512 for the 16 frames ----
-  float acc_re[kBinsPerThread][kTile];
-  float acc_im[kBinsPerThread][kTile];
+  __device__ __forceinline__ static int xoff(int row, int k) {
+    return (row + (k >> 8)) * kBlkLd + (k & (kHop - 1));
+  }
+  __device__ __forceinline__ void store8(void* out, int tile, int mel, int row8,
+                                         const float (&v)[8]) const {
+    const size_t o = ((size_t)(tile >> 1) * mel_core::kMels + mel) * kFrames +
+                     (tile & 1) * kTileFrames + row8;
+    if (OUT_BF16) {
+      __nv_bfloat162 h[4];
 #pragma unroll
-  for (int c = 0; c < kBinsPerThread; ++c)
-#pragma unroll
-    for (int f = 0; f < kTile; ++f) { acc_re[c][f] = 0.f; acc_im[c][f] = 0.f; }
-
-  for (int j = 0; j < kWin; j += 4) {
-    float wr[4][kBinsPerThread], wi[4][kBinsPerThread];
-    float wrl[4][kBinsPerThread], wil[4][kBinsPerThread];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int c = 0; c < kBinsPerThread; ++c) {
-        const int k = tid + c * kThreads;
-        const size_t row = (size_t)(j + q) * kCols;
-        wr[q][c] = __ldg(w_hi + row + k);
-        wi[q][c] = __ldg(w_hi + row + kBins + k);
-        if (MODE == 1) {
-          wrl[q][c] = __ldg(w_lo + row + k);
-          wil[q][c] = __ldg(w_lo + row + kBins + k);
-        }
-      }
-#pragma unroll
-    for (int f = 0; f < kTile; ++f) {
-      const float4 x4 = *reinterpret_cast<const float4*>(xs + f * kWin + j);
-      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (MODE == 1) {
-          const float xh = bf16_round(xv[q]);
-          const float xl = bf16_round(xv[q] - xh);
-#pragma unroll
-          for (int c = 0; c < kBinsPerThread; ++c) {
-            acc_re[c][f] += xh * wr[q][c] + xh * wrl[q][c] + xl * wr[q][c];
-            acc_im[c][f] += xh * wi[q][c] + xh * wil[q][c] + xl * wi[q][c];
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < kBinsPerThread; ++c) {
-            acc_re[c][f] = fmaf(xv[q], wr[q][c], acc_re[c][f]);
-            acc_im[c][f] = fmaf(xv[q], wi[q][c], acc_im[c][f]);
-          }
-        }
-      }
+      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      *reinterpret_cast<uint4*>(reinterpret_cast<__nv_bfloat16*>(out) + o) =
+          *reinterpret_cast<const uint4*>(h);
+    } else {
+      float4* p = reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + o);
+      p[0] = make_float4(v[0], v[1], v[2], v[3]);
+      p[1] = make_float4(v[4], v[5], v[6], v[7]);
     }
   }
-  __syncthreads();  // every thread is done reading the frames
+};
 
-  // ---- power into shared memory (16 x 768) ----
-  float* ps = smem;
-#pragma unroll
-  for (int c = 0; c < kBinsPerThread; ++c)
-#pragma unroll
-    for (int f = 0; f < kTile; ++f) {
-      const float re = acc_re[c][f], im = acc_im[c][f];
-      ps[f * kBins + tid + c * kThreads] = re * re + im * im;
-    }
-  __syncthreads();
-
-  // ---- mel product (float32) + compression: mel m, frames fr + 2i ----
-  const int m = tid % kMels;
-  const int fr = tid / kMels;  // 0 or 1
-  float mel[kMelsPerThread];
-#pragma unroll
-  for (int i = 0; i < kMelsPerThread; ++i) mel[i] = 0.f;
-  for (int k = 0; k < kBins; ++k) {
-    const float wk = __ldg(fb + k * kMels + m);
-#pragma unroll
-    for (int i = 0; i < kMelsPerThread; ++i)
-      mel[i] = fmaf(ps[(fr + 2 * i) * kBins + k], wk, mel[i]);
-  }
-  __syncthreads();  // every thread is done reading the power
-
-  // ---- transpose through shared memory: tile (128 mels x 16 frames) ----
-  float* os = smem;
-#pragma unroll
-  for (int i = 0; i < kMelsPerThread; ++i) {
-    const float v = sqrtf(log10f(mel[i] + 1.0f));
-    os[m * kTile + fr + 2 * i] = in_range ? v : __int_as_float(0x7fc00000);
-  }
-  __syncthreads();
-  const size_t base = (size_t)b * kMels * kFrames + f0;
-  for (int i = tid; i < kMels * kTile; i += kThreads) {
-    const int mm = i / kTile, ff = i % kTile;
-    const size_t o = base + (size_t)mm * kFrames + ff;
-    if (OUT_BF16)
-      reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(os[i]);
-    else
-      reinterpret_cast<float*>(out)[o] = os[i];
-  }
-}
-
-template <int MODE, bool OUT_BF16>
+template <int NP, bool OUT_BF16>
 cudaError_t launch(const float* buf, long long buf_len, const int* starts, int B,
-                   const float* w_hi, const float* w_lo, const float* fb,
-                   void* out, cudaStream_t stream) {
-  dim3 grid(kFrames / kTile, B);
-  frame_mel_kernel<MODE, OUT_BF16><<<grid, kThreads, 0, stream>>>(
-      buf, buf_len, starts, w_hi, w_lo, fb, out);
-  return cudaGetLastError();
+                   const void* tables, void* out, cudaStream_t stream) {
+  const WindowLoader<OUT_BF16> ld{buf, buf_len, starts};
+  return mel_core::launch<WindowLoader<OUT_BF16>, NP>(ld, 2 * B, tables, out, stream);
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes.  Returns the cudaError_t of the launch
-// (0 on success); a window whose start is outside [0, buf_len - 66150]
-// comes out as NaN rather than as a read of the wrong samples.
+// C entry point, bound with ctypes.  `tables` is the bf16 tile stream that
+// ops/mel_core.py builds for `n_parts` (1, 2 or 3).  Returns the cudaError_t
+// of the launch (0 on success); a window whose start is outside
+// [0, buf_len - 66150] comes out as NaN rather than as a read of the wrong
+// samples.
 extern "C" int frame_mel_launch(const float* buf, long long buf_len,
-                                const int* starts, int B,
-                                const float* w_hi, const float* w_lo,
-                                const float* fb, void* out, int mode,
-                                int out_bf16, void* stream) {
+                                const int* starts, int B, const void* tables,
+                                void* out, int n_parts, int out_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  switch (mode * 2 + (out_bf16 ? 1 : 0)) {
-    case 0: return (int)launch<0, false>(buf, buf_len, starts, B, w_hi, w_lo, fb, out, st);
-    case 1: return (int)launch<0, true>(buf, buf_len, starts, B, w_hi, w_lo, fb, out, st);
-    case 2: return (int)launch<1, false>(buf, buf_len, starts, B, w_hi, w_lo, fb, out, st);
-    case 3: return (int)launch<1, true>(buf, buf_len, starts, B, w_hi, w_lo, fb, out, st);
-    case 4: return (int)launch<2, false>(buf, buf_len, starts, B, w_hi, w_lo, fb, out, st);
-    case 5: return (int)launch<2, true>(buf, buf_len, starts, B, w_hi, w_lo, fb, out, st);
+  if (B > (1 << 29)) return (int)cudaErrorInvalidValue;
+  switch (n_parts * 2 + (out_bf16 ? 1 : 0)) {
+    case 2: return (int)launch<1, false>(buf, buf_len, starts, B, tables, out, st);
+    case 3: return (int)launch<1, true>(buf, buf_len, starts, B, tables, out, st);
+    case 4: return (int)launch<2, false>(buf, buf_len, starts, B, tables, out, st);
+    case 5: return (int)launch<2, true>(buf, buf_len, starts, B, tables, out, st);
+    case 6: return (int)launch<3, false>(buf, buf_len, starts, B, tables, out, st);
+    case 7: return (int)launch<3, true>(buf, buf_len, starts, B, tables, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

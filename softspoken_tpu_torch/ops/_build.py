@@ -4,11 +4,13 @@ Each ``csrc/<name>.cu`` exports a plain C entry point and is compiled on
 first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/softspoken_tpu_torch/<name>-<hash>.so
+         -Xcompiler -fPIC -I csrc -o build/softspoken_tpu_torch/<name>-<hash>.so
 
-into the checkout's ``build/`` directory (listed in .gitignore).  The hash
-covers the source and the flags, so an edited source rebuilds and a stale
-library is never loaded.  Nothing here runs at import: the CPU tests import
+into the checkout's ``build/`` directory (listed in .gitignore), with
+``-I csrc`` so that the sources can share headers.  The hash covers the
+source, every header in ``csrc/`` (any of them may be included) and the
+flags, so an edited source or header rebuilds and a stale library is never
+loaded.  Nothing here runs at import: the CPU tests import
 every module on a machine without nvcc.
 """
 
@@ -42,19 +44,28 @@ def nvcc_path() -> str:
                        "are built from csrc/ on first use and need the CUDA toolkit")
 
 
+def lib_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` is built: the name carries a
+    hash of the source, of every header in ``csrc/`` and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(b"\0" + fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless already built; returns the library
     path.  Raises on a failed build."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"{name}-{h}.so")
+    out = lib_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         build_logs[name] = r.stdout
         if r.returncode != 0:

@@ -1,11 +1,13 @@
 """DFT → power → mel → compression over gathered frames (K2).
 
 Counterpart of ``softspoken_tpu/ops/pallas_mel.py``, the opt-in
-``mel_kernel="pallas"`` frontend.  The kernel is ``csrc/dft_mel.cu`` (CUDA
-C++ for sm_90a, see its header for the design and the bound);
-``log_mel_from_frames_dft_ref`` is its plain PyTorch version.  Both skip
-DFT bins 768-1023, whose mel weight is exactly 0 (``tables`` checks it), so
-they sum the same terms; the TPU kernel computes 1024 bins.
+``mel_kernel="pallas"`` frontend.  The kernel is ``csrc/dft_mel.cu`` on the
+shared tensor-core core ``csrc/mel_core.cuh`` (CUDA C++ for sm_90a, see
+their headers for the design and the bound): a six-pass bf16 split product,
+float32 class.  ``log_mel_from_frames_dft_ref`` is its plain PyTorch
+version, in float32.  Both skip DFT bins 768-1023, whose mel weight is
+exactly 0 (``tables`` checks it), so they sum the same terms; the TPU
+kernel computes 1024 bins.
 
 ``log_mel_from_frames_dft`` runs the plain version for tensors on the CPU
 and launches the kernel for CUDA tensors; there is no fallback between the
@@ -21,15 +23,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import KERNEL_LAUNCHES, _build
+from . import KERNEL_LAUNCHES, _build, mel_core
 from . import mel as melops
 
 ROWS_PER_TILE = 256  # the TPU kernel's row tile; B·F must be a multiple
-N_BINS = 768         # mel support ends at bin 743; bins >= 768 weigh exactly 0
+N_BINS = mel_core.N_BINS  # 768: mel support ends at bin 743
 N_MELS = melops.N_MELS
 WIN = melops.WIN_LENGTH
 NAME = "dft_mel"
-_SLICE = 64          # bins per slice of the kernel's W layout
+_N_PARTS = 3         # bf16 parts of each operand: the float32-class product
 
 
 def tables() -> "tuple[np.ndarray, np.ndarray]":
@@ -57,14 +59,10 @@ def log_mel_from_frames_dft_ref(frames: torch.Tensor) -> torch.Tensor:
 
 
 @lru_cache(maxsize=8)
-def _device_tables(device: torch.device):
-    """(W as (12, 512, 128) slices of [re 64 | im 64] bins, fb) on ``device``."""
-    w, fb = tables()
-    n_slices = N_BINS // _SLICE
-    w_sl = w.reshape(WIN, 2, n_slices, _SLICE).transpose(2, 0, 1, 3).reshape(
-        n_slices, WIN, 2 * _SLICE)
-    return (torch.from_numpy(np.ascontiguousarray(w_sl)).to(device),
-            torch.from_numpy(fb).to(device))
+def _device_tables(device: torch.device) -> torch.Tensor:
+    """The kernel's three-part bf16 tile stream of W and fb on ``device``
+    (``ops/mel_core.py``)."""
+    return mel_core.stream_tables(_N_PARTS).to(device)
 
 
 @lru_cache(maxsize=1)
@@ -72,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     fn = lib.dft_mel_launch
     P = ctypes.c_void_p
-    fn.argtypes = [P, ctypes.c_longlong, ctypes.c_int, P, P, P, P]
+    fn.argtypes = [P, ctypes.c_longlong, ctypes.c_int, P, P, P]
     fn.restype = ctypes.c_int
     return lib
 
@@ -94,10 +92,10 @@ def log_mel_from_frames_dft(frames: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, N_MELS, F), dtype=torch.float32, device=frames.device)
     if B * F == 0:
         return out
-    w_sl, fb = _device_tables(frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
-    rc = _lib().dft_mel_launch(frames.data_ptr(), B * F, F, w_sl.data_ptr(),
-                               fb.data_ptr(), out.data_ptr(), stream)
+    rc = _lib().dft_mel_launch(frames.data_ptr(), B * F, F,
+                               _device_tables(frames.device).data_ptr(),
+                               out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dft_mel kernel launch failed: cudaError {rc}")
     KERNEL_LAUNCHES[NAME] += 1

@@ -1,9 +1,10 @@
 """Framing + DFT + mel frontend straight from a chunk buffer (K1).
 
 Counterpart of ``softspoken_tpu/ops/pallas_frame_mel.py``.  The kernel is
-``csrc/frame_mel.cu`` (CUDA C++ for sm_90a, see its header for the design and
-the bound); ``log_mel_windows_fused_ref`` is its plain PyTorch version, built
-from ``ops/mel.py`` with the same truncated 768-bin tables.
+``csrc/frame_mel.cu`` on the shared tensor-core core ``csrc/mel_core.cuh``
+(CUDA C++ for sm_90a, see their headers for the design and the bound);
+``log_mel_windows_fused_ref`` is its plain PyTorch version, built from
+``ops/mel.py`` with the same truncated 768-bin tables.
 
 ``log_mel_windows_fused`` runs the plain version for tensors on the CPU and
 launches the kernel for CUDA tensors; there is no fallback between the two.
@@ -17,7 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import KERNEL_LAUNCHES, _build
+from . import KERNEL_LAUNCHES, _build, mel_core
 from . import mel as melops
 
 N_FREQS_PAD = 768   # mel support ends at bin 743; bins >= 768 weigh exactly 0
@@ -25,7 +26,7 @@ N_MELS = melops.N_MELS
 FRAMES = melops.FRAMES
 WINDOW_SAMPLES = melops.WINDOW_SAMPLES
 NAME = "frame_mel"
-_MODE_ID = {"highest": 0, "high": 1, "default": 2}
+_MODE_PARTS = {"highest": 3, "high": 2, "default": 1}  # bf16 parts of the DFT product
 
 
 def tables() -> "tuple[np.ndarray, np.ndarray]":
@@ -34,7 +35,7 @@ def tables() -> "tuple[np.ndarray, np.ndarray]":
 
 
 def _check_args(mode: str, out_dtype: torch.dtype) -> None:
-    if mode not in _MODE_ID:
+    if mode not in _MODE_PARTS:
         raise ValueError(f"mode must be 'highest', 'high' or 'default', got {mode!r}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
@@ -56,17 +57,10 @@ def log_mel_windows_fused_ref(buf: torch.Tensor, starts: torch.Tensor,
 
 
 @lru_cache(maxsize=8)
-def _device_tables(device: torch.device, mode: str):
-    """(w_hi, w_lo, fb) on ``device``: w_hi/w_lo are the bf16 split of W held
-    as float32 in the bf16 modes, W itself (and w_lo unused) in "highest"."""
-    w, fb = tables()
-    wt = torch.from_numpy(w).to(device)
-    if mode == "highest":
-        w_hi = w_lo = wt
-    else:
-        w_hi = wt.to(torch.bfloat16).to(torch.float32)
-        w_lo = (wt - w_hi).to(torch.bfloat16).to(torch.float32)
-    return w_hi.contiguous(), w_lo.contiguous(), torch.from_numpy(fb).to(device)
+def _device_tables(device: torch.device, mode: str) -> torch.Tensor:
+    """The kernel's bf16 tile stream of W and fb for ``mode`` on ``device``
+    (``ops/mel_core.py``)."""
+    return mel_core.stream_tables(_MODE_PARTS[mode]).to(device)
 
 
 @lru_cache(maxsize=1)
@@ -74,7 +68,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(NAME)
     fn = lib.frame_mel_launch
     P = ctypes.c_void_p
-    fn.argtypes = [P, ctypes.c_longlong, P, ctypes.c_int, P, P, P, P,
+    fn.argtypes = [P, ctypes.c_longlong, P, ctypes.c_int, P, P,
                    ctypes.c_int, ctypes.c_int, P]
     fn.restype = ctypes.c_int
     return lib
@@ -104,12 +98,11 @@ def log_mel_windows_fused(buf: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((B, N_MELS, FRAMES), dtype=out_dtype, device=buf.device)
     if B == 0:
         return out
-    w_hi, w_lo, fb = _device_tables(buf.device, mode)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     rc = _lib().frame_mel_launch(
         buf.data_ptr(), buf.shape[0], starts.data_ptr(), B,
-        w_hi.data_ptr(), w_lo.data_ptr(), fb.data_ptr(), out.data_ptr(),
-        _MODE_ID[mode], int(out_dtype == torch.bfloat16), stream)
+        _device_tables(buf.device, mode).data_ptr(), out.data_ptr(),
+        _MODE_PARTS[mode], int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"frame_mel kernel launch failed: cudaError {rc}")
     KERNEL_LAUNCHES[NAME] += 1

@@ -149,6 +149,19 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def bf16_parts(x: torch.Tensor, n: int) -> "list[torch.Tensor]":
+    """x as n bf16 values carried in float32: part 0 is bf16(x), part p is
+    bf16 of what the parts before it left over (round to nearest even on
+    the float32 value each time).  Three parts hold 8+8+8 mantissa bits and
+    sum back to a float32 x exactly; fewer parts sum to x as far as they
+    reach.  This is the split the CUDA kernels make in registers."""
+    parts, rest = [], x
+    for _ in range(n):
+        parts.append(_bf16(rest))
+        rest = rest - parts[-1]
+    return parts
+
+
 def dft_product(frames: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
     """frames @ w in the mode's arithmetic, float32 out.
 
@@ -161,13 +174,12 @@ def dft_product(frames: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tenso
     """
     if mode == "highest":
         return frames @ w
-    f_hi, w_hi = _bf16(frames), _bf16(w)
-    out = f_hi @ w_hi
     if mode == "high":
-        out = out + f_hi @ _bf16(w - w_hi) + _bf16(frames - f_hi) @ w_hi
-    elif mode != "default":
+        (f_hi, f_lo), (w_hi, w_lo) = bf16_parts(frames, 2), bf16_parts(w, 2)
+        return f_hi @ w_hi + f_hi @ w_lo + f_lo @ w_hi
+    if mode != "default":
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    return out
+    return _bf16(frames) @ _bf16(w)
 
 
 def log_mel_from_frames(frames: torch.Tensor, mode: str = "highest") -> torch.Tensor:

@@ -38,8 +38,10 @@ def _buf_and_starts():
 @pytest.mark.parametrize("mode", ["highest", "high", "default"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_frame_mel_kernel_matches_plain_version(mode, out_dtype):
-    """Same operands, same rounding: only the summation order differs
-    (1e-4 at float32 out; one bf16 ulp below 4, 2**-6, at bf16 out)."""
+    """"default"/"high": same operands, same rounding, only the summation
+    order differs; "highest": the kernel's six-pass bf16 split against a
+    float32 product, terms of weight 2^-24 dropped (1e-4 at float32 out;
+    one bf16 ulp below 4, 2**-6, at bf16 out)."""
     _need_card()
     buf, starts = _buf_and_starts()
     before = KERNEL_LAUNCHES[fm.NAME]
@@ -50,6 +52,51 @@ def test_frame_mel_kernel_matches_plain_version(mode, out_dtype):
     ref = fm.log_mel_windows_fused_ref(buf, starts, mode, out_dtype)
     tol = 1e-4 if out_dtype == torch.float32 else 2.0 ** -6
     np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("mode", ["highest", "default"])
+def test_frame_mel_kernel_at_unaligned_starts(b, mode):
+    """Window starts that are no multiple of 4 samples (the loads are only
+    4-byte aligned), for one window, an odd count, and the engine's batch."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    n = 66150 + 13230 * (b - 1) + 7
+    buf = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    starts_np = np.arange(b) * 13230 // 4 * 4 + 1 + (np.arange(b) % 3)  # 1, 2, 3 mod 4
+    starts_np[-1] = n - 66150
+    assert (starts_np % 4 != 0).sum() >= b - 1 and starts_np.max() + 66150 <= n
+    starts = torch.from_numpy(starts_np.astype(np.int32)).cuda()
+    got = fm.log_mel_windows_fused(buf, starts, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 128, 256) and bool(torch.isfinite(got).all())
+    ref = fm.log_mel_windows_fused_ref(buf, starts, mode)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
+
+
+def test_kernels_on_two_streams_agree():
+    """Launches in flight on two streams at once give what one launch
+    gives: a block's barriers and ring live in its own shared memory."""
+    _need_card()
+    buf, starts = _buf_and_starts()
+    frames = _frames(4, 256)
+    want_fm = fm.log_mel_windows_fused(buf, starts, "high")
+    want_dm = dm.log_mel_from_frames_dft(frames)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got = []
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            a = fm.log_mel_windows_fused(buf, starts, "high")
+            c = dm.log_mel_from_frames_dft(frames)
+        with torch.cuda.stream(s2):
+            b = fm.log_mel_windows_fused(buf, starts, "high")
+            d = dm.log_mel_from_frames_dft(frames)
+        got.append((a, b, c, d))
+    torch.cuda.synchronize()
+    for a, b, c, d in got:
+        assert torch.equal(a, want_fm) and torch.equal(b, want_fm)
+        assert torch.equal(c, want_dm) and torch.equal(d, want_dm)
 
 
 def test_frame_mel_kernel_marks_out_of_range_windows():
@@ -87,11 +134,14 @@ def _frames(b=3, f=256, seed=11):
     return torch.from_numpy(rng.uniform(-0.5, 0.5, (b, f, 512)).astype(np.float32)).cuda()
 
 
-@pytest.mark.parametrize("b,f", [(3, 256), (4, 64), (64, 100)], ids=["F256", "F64", "F100-unaligned"])
+@pytest.mark.parametrize("b,f", [(3, 256), (4, 64), (64, 100), (1, 256), (2, 128)],
+                         ids=["F256", "F64", "F100-unaligned", "rows256", "rows256-F128"])
 def test_dft_mel_kernel_matches_plain_version(b, f):
-    """float32 on both sides, TF32 off in the plain version: only the
-    summation order differs (~1e-6 on values below ~4).  F=100 takes the
-    kernel's scalar store path (F % 8 != 0: a warp's rows span two windows)."""
+    """Float32 class on both sides (the kernel's six-pass bf16 split drops
+    terms of weight 2^-24; TF32 off in the plain version): ~1e-6 on values
+    below ~4.  F=100 takes the kernel's scalar store path (F % 8 != 0: a
+    group of 8 rows spans two windows); rows = 256 is the smallest input
+    the wrapper takes."""
     _need_card()
     frames = _frames(b, f)
     before = KERNEL_LAUNCHES[dm.NAME]

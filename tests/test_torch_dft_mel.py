@@ -94,11 +94,17 @@ def test_truncation_is_exact():
 
 
 def test_kernel_layout_of_w_is_a_permutation():
-    """The kernel reads W as (12 slices, 512, [re 64 | im 64]); the wrapper's
-    table holds exactly W's columns in that order."""
+    """The kernel reads W as 16 KiB bf16 tiles, per 64-bin slice [re 64 | im
+    64] columns by 64 samples, three parts; untiled, the parts sum back to
+    exactly W's columns in that order."""
+    from softspoken_tpu_torch.ops import mel_core
+
     w, _ = dm.tables()
-    w_sl, _fb = dm._device_tables(torch.device("cpu"))
-    w_sl = w_sl.numpy()
-    for s in (0, 5, 11):
-        np.testing.assert_array_equal(w_sl[s, :, :64], w[:, 64 * s: 64 * s + 64])
-        np.testing.assert_array_equal(w_sl[s, :, 64:], w[:, 768 + 64 * s: 768 + 64 * s + 64])
+    stream = dm._device_tables(torch.device("cpu"))
+    assert stream.dtype == torch.bfloat16 and stream.shape == (12, 27, 128, 64)
+    w_parts, _fb = mel_core.untile(stream, 3)
+    np.testing.assert_array_equal(w_parts[0] + w_parts[1] + w_parts[2], w)
+    # slice 5, k-chunk 2, part 0 is tile 2*3 + 0; un-swizzled row n holds bin 64*5 + n
+    tile = mel_core._swizzle(stream[5, 6]).float().numpy()
+    np.testing.assert_array_equal(tile[:64], w_parts[0][128:192, 320:384].T)
+    np.testing.assert_array_equal(tile[64:], w_parts[0][128:192, 768 + 320:768 + 384].T)
