@@ -22,6 +22,13 @@ Phases:
      before each run, read just after), twice in memory, then --streaming
      with the device resampler; then parity-mode checks: card == CPU and
      streaming == in-memory
+  5. training (slice 5): ``fit_synthetic`` on the card, pools of 128 + 128
+     clips, B = 32, n_inner = 10, ["add_reverb", "reduce_volume"], one
+     warm-up outer call and 5 timed (3 in bfloat16), with steps/s, clips/s,
+     the first call's seconds, peak memory and the losses; one step card ==
+     CPU (float32 pinned, dropout off); K1 and K2 launch counts 0 over all
+     of that; the checkpoint in ``Detector`` on the card on the 60 s WAV;
+     a torch.profiler breakdown of one outer call
 Prints a JSON line of kernel records, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
@@ -557,6 +564,204 @@ def phase_host_parity(wav: str) -> None:
             raise AssertionError("host streaming run disagrees with the in-memory one")
 
 
+TRAIN_AUGS = ("add_reverb", "reduce_volume")
+
+
+def timed_fit(work: str, smi: str, dtype: str, timed_outer: int, seed: int = 0) -> dict:
+    """``fit_synthetic`` on the card: pools of 128 + 128 clips, B = 32,
+    n_inner = 10, one untimed outer call and ``timed_outer`` timed ones
+    (each ends in its one metrics read, a synchronization)."""
+    from softspoken_tpu_torch.ckpt import load_pth
+    from softspoken_tpu_torch.train import fit_synthetic
+    from softspoken_tpu_torch.train.loop import create_train_state
+
+    path = os.path.join(work, f"train_{dtype}.pth")
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit_synthetic(steps=10 * (1 + timed_outer), batch_size=32, n_inner=10, pool_speech=128,
+                  pool_noise=128, augmentations=TRAIN_AUGS, seed=seed, ckpt_out=path,
+                  log_every_outer=1, save_every_outer=10 ** 6, train_dtype=dtype,
+                  on_metrics=lambda step, m: seen.append(m), device="cuda")
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    first_s = seen[0]["wall_seconds"]
+    timed_s = seen[-1]["wall_seconds"] - first_s
+    steps_per_s = 10 * timed_outer / timed_s
+    losses = [m["loss"] for m in seen]
+    log(f"train {dtype}: first outer call {first_s:.3f} s; {timed_outer} timed outer calls "
+        f"{timed_s:.3f} s → steps/s={steps_per_s:.3f} clips/s={32 * steps_per_s:.1f} "
+        f"(B=32, n_inner=10); peak max_memory_allocated={peak / 2**30:.3f} GiB; "
+        f"fit_synthetic wall {total_s:.3f} s with pool generation | {smi}")
+    log(f"train {dtype} losses per outer call: " + ", ".join(f"{v:.5f}" for v in losses)
+        + f" | {smi}")
+    if not all(np.isfinite(v) for m in seen for v in m.values()):
+        raise AssertionError(f"train {dtype}: a loss is not finite")
+    sd, epoch = load_pth(path)
+    init = create_train_state(seed=seed).model.state_dict()
+    still = [k for k, v in sd.items() if "running" not in k and torch.equal(torch.as_tensor(v), init[k])]
+    if epoch != 10 * (1 + timed_outer) or still:
+        raise AssertionError(f"train {dtype}: epoch {epoch}, unchanged parameters {still[:5]}")
+    return {"path": path, "steps_per_s": steps_per_s, "first_outer_s": first_s,
+            "peak_bytes": peak, "losses": losses}
+
+
+def train_step_card_vs_cpu(batch_size: int = 4, seed: int = 0, smi: str = "") -> dict:
+    """One train step on the card and on the CPU from the same weights and
+    the same batch (synthesized on the CPU from draws made there; the
+    card's own synthesis of those draws is compared with it), float32
+    pinned (TF32 off), dropout off, the mel in "highest" mode on both.
+
+    The reference for the gradients is the CPU's float64 gradient: cuDNN's
+    backward is not bit-deterministic (its weight gradients may sum with
+    atomics) and sums in other orders than the CPU, and the U-Net amplifies
+    float32 rounding in its gradients, so the card is held to be about as
+    close to float64 as the CPU's float32 is: each gradient tensor's error
+    (relative to its max |g|) within 4× the CPU's error on that tensor or
+    within the CPU's worst error over all tensors (one tensor's error is
+    itself noisy: at B = 2 the card was 7.4× the CPU on one tensor and
+    still 2.5× inside the CPU's worst), and the whole gradient within 3×
+    the CPU's relative L2 error.  Loss to 1e-5 relative; new BN running
+    statistics to 1e-4 of each tensor's max; the synthesized mel to 1e-3
+    (the float32 FFT and matmul libraries; see tests/test_torch_train_synth.py)."""
+    from softspoken_tpu_torch.ops.mel import fp32_matmul
+    from softspoken_tpu_torch.train import device_data as dd
+    from softspoken_tpu_torch.train import synth
+    from softspoken_tpu_torch.train.loop import create_train_state, loss_fn, train_step
+
+    sp, nz = (torch.from_numpy(x) for x in synth.make_pools(np.random.default_rng(seed), 8, 8))
+    fn = dd.make_synth_batch_fn(batch_size, TRAIN_AUGS, mel_mode="highest")
+    draws = fn.draw(torch.Generator().manual_seed(seed), 8, 8)
+
+    def to(d, dev):
+        return {k: (to(v, dev) if isinstance(v, dict) else v.to(dev)) for k, v in d.items()}
+
+    with fp32_matmul(), torch.no_grad():
+        batch = fn.transform(sp, nz, draws)
+        card_batch = fn.transform(sp.cuda(), nz.cuda(), to(draws, "cuda"))
+    mel_err = float((card_batch["mel"].cpu() - batch["mel"]).abs().max())
+    mask_flips = int((card_batch["mask"].cpu() != batch["mask"]).sum())
+
+    def step(dev):
+        state = create_train_state(seed, device=dev, dropout_p=0.0)
+        with fp32_matmul():
+            m = train_step(state, to(batch, dev))
+        grads = {k: p.grad.cpu().double() for k, p in state.model.named_parameters()}
+        sd = {k: v.cpu().double() for k, v in state.model.state_dict().items()}
+        return float(m["loss"]), grads, sd
+
+    loss_g, grads_g, sd_g = step("cuda")
+    loss_c, grads_c, sd_c = step("cpu")
+    model = create_train_state(seed, dropout_p=0.0).model.double().train()
+    loss64, _ = loss_fn(model, {k: v.double() for k, v in batch.items()})
+    loss64.backward()
+    truth = {k: p.grad for k, p in model.named_parameters()}
+
+    def err(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    per = [(err(grads_g[k], truth[k]), err(grads_c[k], truth[k]), k) for k in truth]
+    cpu_worst = max(r[1] for r in per)
+    bad = [r for r in per if r[0] > max(4 * r[1], cpu_worst)]
+    l2 = {name: float(torch.sqrt(sum(((g[k] - truth[k]) ** 2).sum() for k in truth)
+                                 / sum((truth[k] ** 2).sum() for k in truth)))
+          for name, g in (("card", grads_g), ("cpu", grads_c))}
+    stat_err = max(err(sd_g[k], sd_c[k]) for k in sd_g if "running" in k)
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst = max(per)
+    log(f"train parity card vs CPU (B={batch_size}, float32 pinned, dropout off): loss "
+        f"{loss_g:.7f} / {loss_c:.7f} (float64 {float(loss64.detach()):.7f}) rel_diff={loss_rel:.2e} tol=1e-5; "
+        f"gradient vs float64, relative L2: card {l2['card']:.3e} CPU {l2['cpu']:.3e} (tol 3× CPU); "
+        f"worst tensor {worst[2]} card {worst[0]:.2e} CPU {worst[1]:.2e}, CPU's worst "
+        f"{cpu_worst:.2e}; tensors outside max(4× CPU, CPU's worst): {len(bad)}; "
+        f"BN stats max rel diff {stat_err:.2e} tol=1e-4; "
+        f"synthesized mel card vs CPU {mel_err:.2e} tol=1e-3, mask flips {mask_flips} | {smi}")
+    if (loss_rel > 1e-5 or bad or l2["card"] > 3 * l2["cpu"] + 1e-7 or stat_err > 1e-4
+            or mel_err > 1e-3):
+        raise AssertionError(f"train step on the card disagrees with the CPU: {bad[:5]}")
+    return {"loss_rel": loss_rel, "l2": l2, "stat_err": stat_err, "mel_err": mel_err}
+
+
+def profile_train_outer(smi: str, seed: int = 0) -> None:
+    """Device time by kernel over one outer call (10 steps, B = 32, float32)
+    of the fused train step, after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from softspoken_tpu_torch.train import device_data as dd
+    from softspoken_tpu_torch.train import synth
+    from softspoken_tpu_torch.train.loop import create_train_state
+
+    sp, nz = (torch.from_numpy(x).cuda() for x in synth.make_pools(np.random.default_rng(seed), 32, 32))
+    state = create_train_state(seed, device="cuda")
+    step = dd.make_fused_train_step(dd.make_synth_batch_fn(32, TRAIN_AUGS), n_inner=10)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    float(step(state, sp, nz, gen)["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step(state, sp, nz, gen)["loss"])
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    groups = {}
+    for ms, _n, key in rows:
+        k = key.lower()
+        g = ("batch_norm" if ("bn_fw" in k or "bn_bw" in k or "batch_norm" in k
+                              or "welford" in k) else
+             "layout" if ("nchwtonhwc" in k or "nhwctonchw" in k) else
+             "fft" if "fft" in k else
+             "conv" if ("fprop" in k or "dgrad" in k or "wgrad" in k or "conv" in k) else
+             "gemm" if ("gemm" in k or "cutlass" in k or "nvjet" in k) else
+             "optimizer" if ("foreach" in k or "adam" in k) else
+             "memcpy" if "memcpy" in k else
+             "elementwise" if "elementwise" in k else "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    log(f"train profile: one outer call (10 steps, B=32, float32), kernel device_ms={total:.3f} "
+        f"wall_ms={wall_ms:.3f} (profiler on) device busy {100 * total / wall_ms:.1f}% of wall; "
+        f"by_group={json.dumps({k: round(v, 3) for k, v in groups.items()})} | {smi}")
+    for ms, n, key in rows[:25]:
+        log(f"  {ms:10.3f} ms  x{n:<5d} {key[:110]}")
+
+
+def phase_train(work: str, wav: str, smi: str) -> None:
+    """Slice 5: ``fit_synthetic`` on the card (float32 and bfloat16), one
+    step card == CPU, and the launch counters of K1 and K2 over all three
+    (the training path runs neither); then its checkpoint in ``Detector``
+    on the card, and a profile of one outer call."""
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    f32 = timed_fit(work, smi, "float32", timed_outer=5)
+    timed_fit(work, smi, "bfloat16", timed_outer=3)
+    train_step_card_vs_cpu(smi=smi)
+    torch.cuda.synchronize()
+    launches = dict(KERNEL_LAUNCHES)
+    log("kernel launches over the training phase:", json.dumps(launches))
+    if any(launches.get(k, 0) for k in KERNELS):
+        raise AssertionError("the training path launched a mel kernel")
+
+    det = Detector(checkpoint_path=f32["path"])
+    res = det.detect_file_streaming(wav)
+    log(f"trained checkpoint (epoch {det.epoch}) in Detector on the card ({det.pipeline}): "
+        f"windows={res.num_windows} intervals={len(res.intervals)} "
+        f"finite={bool(np.isfinite(res.avg_values).all())}")
+    if det.epoch != 60 or not np.isfinite(res.avg_values).all() or res.num_windows < 1:
+        raise AssertionError("the trained checkpoint does not run in Detector")
+    profile_train_outer(smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
@@ -592,6 +797,7 @@ def main() -> int:
         phase_parity(wav60)
         k2["launches"] = phase_host_path(work, wav)
         phase_host_parity(wav60)
+        phase_train(work, wav60, smi)
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

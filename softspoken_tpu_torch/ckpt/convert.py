@@ -10,16 +10,21 @@ The port's modules use the reference's ``state_dict`` key set and layout
     seed gives exactly the JAX package's ``fixture_variables(seed)``
   * ``from_flax_variables`` — ``{'params', 'batch_stats'}`` as numpy (Flax
     HWIO kernels) → the reference layout (OIHW)
+  * ``save_pth``            — a model's state dict as a reference checkpoint
+    that the JAX package's torch-free reader loads too
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..models.unet import RES_BLOCK_SHAPES
+from ..ops import mel as melops
 
 _1D_BLOCKS = {"mask_output_conv.0"}
 # reference module path → Flax module names
@@ -126,3 +131,41 @@ def load_pth(path: str) -> Tuple[Dict[str, object], int]:
         raise IOError(f"{path}: not a reference checkpoint "
                       "(expected a dict with 'model_state_dict')")
     return model_keys(ckpt["model_state_dict"]), int(ckpt.get("epoch", -1))
+
+
+def mel_buffers() -> Dict[str, np.ndarray]:
+    """The torchaudio frontend buffers a reference checkpoint carries
+    (``pytorch_neural_nets.py:92-99``)."""
+    return {
+        "mel_spectrogram.spectrogram.window":
+            melops.hann_periodic(melops.WIN_LENGTH).astype(np.float32),
+        "mel_spectrogram.mel_scale.fb": melops.mel_filterbank(),
+    }
+
+
+def save_pth(path: str, state_dict: Mapping[str, object], epoch: int = -1) -> None:
+    """Write ``{'model_state_dict', 'epoch'}`` (``NNDetector.py:47-49``).
+
+    The state dict keeps its BN ``num_batches_tracked`` counters and gains
+    the ``mel_spectrogram.*`` buffers, as the JAX package's ``export_pth``
+    writes them.  Every tensor is saved from the CPU, contiguous, in a plain
+    dict, so that the JAX package's torch-free reader loads the file.  The
+    write goes to a temporary file in the same directory, then
+    ``os.replace``: a reader never sees half a checkpoint.
+    """
+    sd = {k: torch.as_tensor(v).detach().cpu().contiguous()
+          for k, v in {**mel_buffers(), **dict(state_dict)}.items()}
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path) + ".", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save({"model_state_dict": sd, "epoch": int(epoch)}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.chmod(tmp, 0o644)  # mkstemp's 0600 would hide the file from other users
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise

@@ -17,17 +17,36 @@ takes the log-mel image.
 
 ``mask_logits`` runs the mask head only: detection never needs the spec
 head, whose ResBlock at 128×256 would be about a fifth of the forward.
+
+Training mode (``model.train()``) follows the JAX package's Flax module
+(``softspoken_tpu/models/unet.py:176-266``), not ``torch.nn``'s defaults:
+
+  * BatchNorm normalizes with the batch statistics and updates its running
+    statistics as Flax does, ``ra = 0.9·ra + 0.1·batch_stat`` with the
+    **biased** batch variance (``torch.nn.BatchNorm`` would update with the
+    unbiased one, ×n/(n−1), and every trained checkpoint's running variances
+    would drift from the JAX trainer's).  The statistics and the
+    normalization run in float32 at least, whatever the input type.
+  * Dropout2d (p = 0.1) after the add+ReLU of every 2-D block drops whole
+    channel maps; the 1-D mask block drops whole channels over time.  The
+    masks come from the ``generator`` passed to ``forward``.
+
+A bfloat16 training step runs the module under ``torch.autocast`` with
+float32 parameters (``train/loop.py``).  Eval mode computes what it always
+did.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch's convention: Flax's momentum 0.9
+DROPOUT_P = 0.1
 FILTERS = 32
 N_MELS = 128
 
@@ -41,17 +60,56 @@ RES_BLOCK_SHAPES = {
 }
 
 
+class _TrainStatsBN:
+    """BatchNorm whose training mode is Flax's (see the module docstring);
+    eval mode is torch's, unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            stat_t = torch.promote_types(x.dtype, torch.float32)
+            var, mean = torch.var_mean(x.to(stat_t), dim=dims, correction=0)
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        # batch statistics, biased variance, float32 arithmetic
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(_TrainStatsBN, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_TrainStatsBN, nn.BatchNorm1d):
+    pass
+
+
+def channel_dropout(x: torch.Tensor, p: float,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Drop whole channels of (B, C, ...) with probability ``p`` and scale the
+    kept ones by 1/(1−p): Flax ``nn.Dropout(p, broadcast_dims=…)`` over every
+    axis but batch and channel (Dropout2d / Dropout1d)."""
+    keep_prob = 1.0 - p
+    shape = x.shape[:2] + (1,) * (x.dim() - 2)
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ResBlock(nn.Module):
     """Residual conv block (pytorch_neural_nets.py:7-77), 2-D or 1-D.
 
-    1×1 conv+BN shortcut; 3×3 conv-BN-ReLU, 3×3 conv-BN; add, ReLU.  The
-    reference's Dropout after the add is inactive at inference.
+    1×1 conv+BN shortcut; 3×3 conv-BN-ReLU, 3×3 conv-BN; add, ReLU, then
+    channel dropout in training mode.
     """
 
-    def __init__(self, cin: int, cout: int, folded: bool = False, oned: bool = False):
+    def __init__(self, cin: int, cout: int, folded: bool = False, oned: bool = False,
+                 dropout_p: float = DROPOUT_P):
         super().__init__()
         conv = nn.Conv1d if oned else nn.Conv2d
-        bn = nn.BatchNorm1d if oned else nn.BatchNorm2d
+        bn = BatchNorm1d if oned else BatchNorm2d
+        self.dropout_p = dropout_p
 
         def seq(ci, k, pad):
             layers = [conv(ci, cout, k, padding=pad, bias=folded)]
@@ -63,10 +121,14 @@ class ResBlock(nn.Module):
         self.conv1 = seq(cin, 3, 1)
         self.conv2 = seq(cout, 3, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         identity = self.residual(x)
         out = F.relu(self.conv1(x))
-        return F.relu(self.conv2(out) + identity)
+        out = F.relu(self.conv2(out) + identity)
+        if self.training and self.dropout_p > 0:
+            out = channel_dropout(out, self.dropout_p, generator)
+        return out
 
 
 def _up(x: torch.Tensor) -> torch.Tensor:
@@ -77,52 +139,56 @@ def _up(x: torch.Tensor) -> torch.Tensor:
 class SpecUNet2D(nn.Module):
     """Input (B, 128, 256) log-mel; see ``forward`` and ``mask_logits``."""
 
-    def __init__(self, folded: bool = False):
+    def __init__(self, folded: bool = False, dropout_p: float = DROPOUT_P):
         super().__init__()
         self.folded = folded
         for name, (ci, co) in RES_BLOCK_SHAPES.items():
             if "." not in name:
-                setattr(self, name, ResBlock(ci, co, folded))
+                setattr(self, name, ResBlock(ci, co, folded, dropout_p=dropout_p))
         self.spec_output_conv = nn.Sequential(
-            ResBlock(FILTERS, FILTERS, folded), nn.Conv2d(FILTERS, 2, 1))
+            ResBlock(FILTERS, FILTERS, folded, dropout_p=dropout_p), nn.Conv2d(FILTERS, 2, 1))
         # Conv2d(32→4, kernel=(128, 1)): a VALID conv with one vertical
         # position, computed in _flatten as one contraction over (mel, channel)
         self.conv_flatten = nn.Conv2d(FILTERS, 4, (N_MELS, 1))
         self.mask_output_conv = nn.Sequential(
-            ResBlock(4, 4, folded, oned=True), nn.Conv1d(4, 1, 1))
+            ResBlock(4, 4, folded, oned=True, dropout_p=dropout_p), nn.Conv1d(4, 1, 1))
 
-    def _trunk(self, mel: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, mel: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, 128, 256) → conv9 features (B, 32, 128, 256)."""
         dtype = self.conv1_1.conv1[0].weight.dtype
         x = mel.to(dtype).unsqueeze(1)
-        conv1 = self.conv1_1(x)
-        conv2 = self.conv2_1(F.max_pool2d(conv1, 2))
-        conv3 = self.conv3_1(F.max_pool2d(conv2, 2))
-        conv4 = self.conv4_1(F.max_pool2d(conv3, 2))
-        enc = self.encoder_out(self.conv_bottleneck(F.max_pool2d(conv4, 2)))
+        conv1 = self.conv1_1(x, gen)
+        conv2 = self.conv2_1(F.max_pool2d(conv1, 2), gen)
+        conv3 = self.conv3_1(F.max_pool2d(conv2, 2), gen)
+        conv4 = self.conv4_1(F.max_pool2d(conv3, 2), gen)
+        enc = self.encoder_out(self.conv_bottleneck(F.max_pool2d(conv4, 2), gen), gen)
         # decoder: concat order [skip, up] as torch.cat([skip, up], dim=1)
-        conv6 = self.conv6(torch.cat([conv4, _up(enc)], 1))
-        conv7 = self.conv7(torch.cat([conv3, _up(conv6)], 1))
-        conv8 = self.conv8(torch.cat([conv2, _up(conv7)], 1))
-        return self.conv9_1(torch.cat([conv1, _up(conv8)], 1))
+        conv6 = self.conv6(torch.cat([conv4, _up(enc)], 1), gen)
+        conv7 = self.conv7(torch.cat([conv3, _up(conv6)], 1), gen)
+        conv8 = self.conv8(torch.cat([conv2, _up(conv7)], 1), gen)
+        return self.conv9_1(torch.cat([conv1, _up(conv8)], 1), gen)
 
-    def _mask_head(self, conv9: torch.Tensor) -> torch.Tensor:
+    def _mask_head(self, conv9: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         w = self.conv_flatten.weight[..., 0]                     # (4, 32, 128)
         flat = torch.einsum("bcht,och->bot", conv9, w)
         flat = F.relu(flat + self.conv_flatten.bias[None, :, None])
-        m = self.mask_output_conv(flat)                           # (B, 1, 256)
+        block, conv = self.mask_output_conv
+        m = conv(block(flat, gen))                                # (B, 1, 256)
         return m[:, 0].to(torch.float32)
 
     def mask_logits(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, 128, 256) → raw per-frame speech logits (B, 256) float32."""
         return self._mask_head(self._trunk(mel))
 
-    def forward(self, mel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, 128, 256) → (spec (B, 2, 128, 256), mask logits (B, 256)),
-        both float32."""
-        conv9 = self._trunk(mel)
-        spec = F.relu(self.spec_output_conv(conv9)).to(torch.float32)
-        return spec, self._mask_head(conv9)
+        both float32.  ``generator`` draws the dropout masks in training
+        mode."""
+        conv9 = self._trunk(mel, generator)
+        block, conv = self.spec_output_conv
+        spec = F.relu(conv(block(conv9, generator))).to(torch.float32)
+        return spec, self._mask_head(conv9, generator)
 
 
 def param_count(model: nn.Module) -> int:

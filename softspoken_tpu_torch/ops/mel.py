@@ -182,11 +182,17 @@ def dft_product(frames: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tenso
     return _bf16(frames) @ _bf16(w)
 
 
+@lru_cache(maxsize=8)
+def _device_tables(device: torch.device) -> "tuple[torch.Tensor, torch.Tensor]":
+    """(W, fb) on ``device``, uploaded once: a pageable copy per call would
+    block the host (the training step calls the chain three times)."""
+    return (torch.from_numpy(dft_matrices()).to(device),
+            torch.from_numpy(mel_filterbank()).to(device))
+
+
 def log_mel_from_frames(frames: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     """(B, F, 512) frames → (B, n_mels, F) compressed log-mel, float32."""
-    dev = frames.device
-    w = torch.from_numpy(dft_matrices()).to(dev)
-    fb = torch.from_numpy(mel_filterbank()).to(dev)
+    w, fb = _device_tables(frames.device)
     with fp32_matmul():
         proj = dft_product(frames.to(torch.float32), w, mode)
         re, im = proj[..., :N_FREQS], proj[..., N_FREQS:]
@@ -200,6 +206,25 @@ def log_mel_windows(waveform: torch.Tensor, starts: torch.Tensor,
                     mode: str = "highest") -> torch.Tensor:
     """Gather + DFT + mel + compression: (B, n_mels, 256) float32."""
     return log_mel_from_frames(gather_frames(waveform.to(torch.float32), starts), mode)
+
+
+def train_mel_mode(device: torch.device) -> str:
+    """The mel mode of the training frontend on ``device``.
+
+    The JAX trainer calls ``log_mel_clips`` at ``precision=None``, the
+    backend's default: one bf16 pass on its accelerator, which is what its
+    fast-mode serving computes, and float32 on the CPU.  The port does the
+    same: "default" on the card (the mode fast-mode inference resolves to),
+    "highest" on the CPU.
+    """
+    return "default" if torch.device(device).type == "cuda" else "highest"
+
+
+def log_mel_clips(clips: torch.Tensor, mode: str = "highest") -> torch.Tensor:
+    """(B, 66150) independent 3 s clips → (B, n_mels, 256) compressed log-mel,
+    float32: each clip is its own window.  The training batch synthesizer
+    calls it with ``train_mel_mode(device)``."""
+    return log_mel_from_frames(frames_from_window(clips.to(torch.float32)), mode)
 
 
 @contextmanager

@@ -1,0 +1,267 @@
+"""Training driver: ``fit_synthetic``, the on-device synthetic trainer (the
+JAX package's ``train/fit.py``).
+
+The host makes two clip pools from a seed (``train/synth.py``) and uploads
+them once; every step then runs on the device (``train/device_data.py``):
+draws, synthesis, mel, targets, forward, backward and the AdamW update.
+Fresh pools are generated on a background thread and swapped in through a
+pinned host copy, so host work never blocks the device.  Checkpoints are
+reference ``.pth`` files (``ckpt.save_pth``) that the port's ``Detector``
+and the JAX package's ``ckpt.load_pth`` both read.
+
+The host trainer ``fit`` (WAV directories, ``train/data.py``) is not ported
+yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import ckpt as ckpt_mod
+from ..engine.detector import resolve_device
+from .loop import DTYPES, TrainState, create_train_state
+
+log = logging.getLogger(__name__)
+
+
+def _save_checkpoint(ckpt_out: str, state: TrainState, epoch: int, fatal: bool) -> None:
+    """Persist the weights and BN statistics; a mid-run save failure must not
+    kill a long training run (the final save still raises)."""
+    try:
+        ckpt_mod.save_pth(ckpt_out, state.model.state_dict(), epoch=epoch)
+    except Exception:  # noqa: BLE001 — keep training, surface the failure
+        if fatal:
+            raise
+        log.exception("checkpoint save failed at step %d (continuing)", epoch)
+
+
+def _host_pools(pools, pin: bool):
+    """Host pools as tensors, pinned for an asynchronous copy to the card."""
+    ts = tuple(torch.from_numpy(np.ascontiguousarray(p)) for p in pools)
+    return tuple(t.pin_memory() for t in ts) if pin else ts
+
+
+def fit_synthetic(
+    steps: int = 2000,
+    batch_size: int = 32,
+    learning_rate: float = 1e-3,
+    ckpt_out: Optional[str] = None,
+    augmentations: Sequence[str] = ("add_reverb", "reduce_volume", "bandpass_filter"),
+    seed: int = 0,
+    mesh=None,
+    n_inner: int = 10,
+    pool_speech: int = 768,
+    pool_noise: int = 768,
+    pool_refresh_outer: int = 50,
+    log_every_outer: int = 5,
+    save_every_outer: int = 25,
+    on_metrics=None,
+    resume: Optional[str] = None,
+    train_dtype: str = "float32",
+    noise_extra_kinds: tuple = (),
+    noise_extra_frac: float = 0.2,
+    noise_extra_policy: str = "mixed",
+    noise_extra_snr_range: tuple = (10.0, 20.0),
+    noise_extra_silent_prob: float = 0.5,
+    boundary_weight: float = 0.0,
+    snr_db_range: tuple = (-5.0, 20.0),
+    stall_abort_s: float = 900.0,
+    device=None,
+) -> Dict[str, float]:
+    """Train from the synthetic corpus with fully on-device batch synthesis.
+
+    Each outer iteration runs ``n_inner`` complete steps and then reads its
+    averaged metrics once.  Every ``log_every_outer`` outer iterations the
+    metrics are logged and passed to ``on_metrics(step, metrics)``; the
+    metrics carry ``wall_seconds`` besides the losses: the host time since
+    the loop began, the first outer iteration's set-up included.  Returns
+    the last logged metrics.
+
+    ``device``: the CUDA card unless the caller passes ``"cpu"``; raises
+    without a card.  ``mesh`` (multi-GPU) is not ported.
+    """
+    from . import synth
+    from .device_data import make_fused_train_step, make_synth_batch_fn
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh training is not ported to softspoken_tpu_torch yet "
+            "(ROADMAP.md §1, multi-GPU and the sharded steps)")
+    if noise_extra_policy not in ("mixed", "protected"):
+        raise ValueError(f"unknown noise_extra_policy {noise_extra_policy!r}")
+    if (noise_extra_policy == "protected" and noise_extra_kinds
+            and int(pool_noise * noise_extra_frac) >= pool_noise):
+        # extras_start would be 0 and the policy would silently fall back
+        # to the mixed path, the opposite of what was requested
+        raise ValueError(
+            "noise_extra_policy='protected' requires noise_extra_frac < 1.0 "
+            "(some non-extra noise must remain to mix under speech); got "
+            f"noise_extra_frac={noise_extra_frac}")
+    if train_dtype not in DTYPES:
+        raise ValueError(f"train_dtype must be one of {sorted(DTYPES)}, got {train_dtype!r}")
+    dev = resolve_device(device)
+    pin = dev.type == "cuda"
+
+    def upload(pools):
+        return tuple(t.to(dev, non_blocking=True) for t in pools)
+
+    rng = np.random.default_rng(seed)
+    log.info("generating initial clip pools (%d speech + %d noise)…",
+             pool_speech, pool_noise)
+    speech_pool, noise_pool = upload(_host_pools(synth.make_pools(
+        rng, pool_speech, pool_noise, extra_kinds=tuple(noise_extra_kinds),
+        extra_frac=noise_extra_frac), pin))
+
+    state = create_train_state(seed, learning_rate, resume=resume,
+                               compute_dtype=DTYPES[train_dtype], device=dev)
+    step0 = state.step
+    # protected placement: make_pools appends the extra kinds as the LAST
+    # extra_frac of the noise pool, so the region boundary is static
+    n_extra = int(pool_noise * noise_extra_frac) if noise_extra_kinds else 0
+    extras_start = (pool_noise - n_extra
+                    if noise_extra_policy == "protected" and n_extra > 0 else None)
+    synth_fn = make_synth_batch_fn(batch_size, augmentations,
+                                   snr_db_range=tuple(snr_db_range),
+                                   extras_start=extras_start,
+                                   extras_snr_range=tuple(noise_extra_snr_range),
+                                   extras_silent_prob=noise_extra_silent_prob)
+    step_fn = make_fused_train_step(synth_fn, n_inner=n_inner,
+                                    boundary_weight=boundary_weight)
+
+    outer_total = -(-steps // n_inner)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    pool_rng = np.random.default_rng(seed + 2)
+    pool_pending = None
+    metrics: Dict[str, float] = {}
+    t0 = time.perf_counter()
+
+    watchdog = (_StallWatchdog(stall_abort_s)
+                if stall_abort_s and stall_abort_s > 0 else None)
+
+    # the watchdog daemon must not outlive the loop: on an exception it
+    # would os._exit(86) the whole process up to stall_abort_s later
+    try:
+        for outer in range(1, outer_total + 1):
+            pinned = None
+            if pool_refresh_outer:
+                # swap in a fresh pool the moment its background generation
+                # finishes; meanwhile keep training on the current pool.
+                # Generations run on a daemon thread and are not started
+                # near the end of the run.
+                if pool_pending is not None and pool_pending.failed():
+                    log.warning("background pool refresh failed (%s); will retry",
+                                pool_pending.error)
+                    pool_pending = None
+                elif pool_pending is not None and pool_pending.done():
+                    # the pinned copy stays referenced until this outer
+                    # iteration's metrics read has waited for the copy
+                    pinned = pool_pending.result
+                    speech_pool, noise_pool = upload(pinned)
+                    log.info("swapped in a fresh clip pool at step %d", outer * n_inner)
+                    pool_pending = None
+                if (pool_pending is None
+                        and outer % pool_refresh_outer == 0
+                        and outer_total - outer >= pool_refresh_outer):
+                    pool_pending = _DaemonJob(
+                        lambda: _host_pools(synth.make_pools(
+                            pool_rng, pool_speech, pool_noise,
+                            extra_kinds=tuple(noise_extra_kinds),
+                            extra_frac=noise_extra_frac), pin))
+            m = step_fn(state, speech_pool, noise_pool, gen)
+            names = sorted(m)
+            values = torch.stack([m[k] for k in names]).tolist()  # the one read
+            del pinned
+            if watchdog is not None:
+                watchdog.beat(outer)
+            step = outer * n_inner
+            if outer % log_every_outer == 0 or outer == outer_total:
+                elapsed = time.perf_counter() - t0
+                metrics = dict(zip(names, values), wall_seconds=elapsed)
+                log.info(
+                    "step %d/%d  loss=%.4f  mask=%.4f  spec=%.4f  (%.1f clips/s, %.3f s/step)",
+                    step, outer_total * n_inner, metrics["loss"], metrics["mask_loss"],
+                    metrics["spec_loss"], step * batch_size / elapsed, elapsed / step)
+                if on_metrics:
+                    on_metrics(step, metrics)
+            if ckpt_out and (outer % save_every_outer == 0 or outer == outer_total):
+                _save_checkpoint(ckpt_out, state, step0 + step, fatal=outer == outer_total)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+    return metrics
+
+
+class _StallWatchdog:
+    """Abort the process when training stops making progress.
+
+    A hang is worse than a crash here: checkpoints make restarts cheap, so
+    when no heartbeat arrives within ``timeout_s`` the process exits with
+    code 86, which supervisors treat as retryable.  A thread blocked inside
+    a device call cannot be unwound from Python, hence ``os._exit``.
+    """
+
+    EXIT_CODE = 86
+
+    def __init__(self, timeout_s: float, abort=None):
+        self.timeout_s = timeout_s
+        self._abort = abort if abort is not None else os._exit
+        self._beat = {"t": time.monotonic(), "step": 0}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._watch, daemon=True, name="train-stall-watchdog")
+        self._thread.start()
+
+    def beat(self, step: int) -> None:
+        self._beat = {"t": time.monotonic(), "step": step}
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def _watch(self) -> None:
+        poll = max(0.05, min(30.0, self.timeout_s / 4))
+        while not self._stop.wait(poll):
+            beat = self._beat
+            quiet = time.monotonic() - beat["t"]
+            if quiet > self.timeout_s:
+                log.error(
+                    "no training progress for %.0f s (device stall?) — aborting "
+                    "with exit code %d so a supervisor can retry; last completed "
+                    "outer step %d, latest checkpoint is resumable",
+                    quiet, self.EXIT_CODE, beat["step"])
+                self._abort(self.EXIT_CODE)
+                return
+
+
+class _DaemonJob:
+    """One background computation on a daemon thread (never blocks exit)."""
+
+    def __init__(self, fn, *args, **kwargs):
+        self.result = None
+        self.error: Exception | None = None
+        self._done = threading.Event()
+
+        def run():
+            try:
+                self.result = fn(*args, **kwargs)
+            except Exception as e:  # surfaced by the training loop
+                self.error = e
+            finally:
+                self._done.set()
+
+        threading.Thread(target=run, daemon=True).start()
+
+    def done(self) -> bool:
+        # completion is the event alone, so a job whose fn returned None
+        # is still done
+        return self._done.is_set() and self.error is None
+
+    def failed(self) -> bool:
+        return self._done.is_set() and self.error is not None

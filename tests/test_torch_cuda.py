@@ -193,3 +193,34 @@ def test_device_resampler_on_the_card_matches_the_host(tmp_path):
     assert dev.shape == host.shape
     np.testing.assert_allclose(dev, host, atol=1e-5)
     np.testing.assert_allclose(dev, load_audio(p)[0], atol=1e-5)
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One float32 step (TF32 off, dropout off) from the same weights and
+    batch: chip_smoke's check, with its tolerances, at B = 2."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.train_step_card_vs_cpu(batch_size=2)
+
+
+def test_pth_trained_on_the_card_runs_in_detector(tmp_path):
+    _need_card()
+    from softspoken_tpu_torch.ckpt import load_pth
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.train import fit_synthetic
+
+    p = str(tmp_path / "card.pth")
+    m = fit_synthetic(steps=2, batch_size=2, n_inner=1, pool_speech=2, pool_noise=2,
+                      ckpt_out=p, augmentations=("add_reverb", "reduce_volume"))
+    assert all(np.isfinite(v) for v in m.values())
+    sd, epoch = load_pth(p)
+    assert epoch == 2 and all(not torch.as_tensor(v).is_cuda for v in sd.values())
+    wav = str(tmp_path / "x.wav")
+    rng = np.random.default_rng(0)
+    wavio.write(wav, (0.1 * rng.standard_normal(32000 * 20)).astype(np.float32), 32000)
+    det = Detector(checkpoint_path=p)
+    assert det.device.type == "cuda" and det.epoch == 2
+    res = det.detect_file_streaming(wav)
+    assert res.num_windows > 0 and np.isfinite(res.avg_values).all()
