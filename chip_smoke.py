@@ -29,6 +29,28 @@ Phases:
      CPU (float32 pinned, dropout off); K1 and K2 launch counts 0 over all
      of that; the checkpoint in ``Detector`` on the card on the 60 s WAV;
      a torch.profiler breakdown of one outer call
+  6. slice 6, after the WAVs are written (native, before phase 3) and
+     after training (the rest):
+     native — both g++ libraries (csrc/ssdsp.cpp, csrc/ssflac.cpp, one g++
+       each, started together; build seconds), then the 30-minute WAV's
+       samples resampled natively and with scipy (times, largest
+       difference); phase 4's in-memory runs must then decode through the
+       native library (call counts), their rate and ``decode`` printed
+       beside the scipy-bound numbers of PERF.md
+     flac — one 120 s PCM16 signal as a WAV and as a mono 16-bit FLAC
+       (tests/flac_ref.py): fused fast mode timed (audio-s/wall-s,
+       host_fill, K1 launches, native FLAC reads) and parity mode, grids
+       bit-equal; the host path with K2, grids within 1e-6; a 10 s stereo
+       24-bit FLAC on the f32 wire bit-equal to the same samples as a float
+       WAV
+     containers — a 60 s AIFF and W64 (the writers of tests/test_aiff.py and
+       tests/test_pcm_containers.py): fused grids bit-equal to the WAV's
+     determinism — two fused fast runs on the 30-minute WAV, bit-equal;
+       the grid update timed against the index_add_ pair it replaced
+     trained — ``Detector()`` loads epoch 48750; 8 labeled 120 s fields
+       (``synth_field_recording``, seeds 0-7) in fast and parity mode:
+       frame and event F1; fails if fast's mean frame F1 is more than 0.01
+       below parity's or either is under 0.80
 Prints a JSON line of kernel records, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
@@ -333,11 +355,9 @@ def phase_dft_mel(peaks) -> dict:
     return rec
 
 
-def _field_wav(path: str, seconds: float, sr: int, seed: int) -> None:
+def _field_signal(seconds: float, sr: int, seed: int) -> np.ndarray:
     """Seeded noise floor with speech-band bursts (modulated 300-3000 Hz
-    tones, 2.5 s every 20 s), written as PCM16 mono."""
-    from softspoken_tpu_torch.io import wavio
-
+    tones, 2.5 s every 20 s), float32 mono."""
     rng = np.random.default_rng(seed)
     n = int(seconds * sr)
     x = (0.01 * rng.standard_normal(n)).astype(np.float32)
@@ -346,7 +366,14 @@ def _field_wav(path: str, seconds: float, sr: int, seed: int) -> None:
     for k, s0 in enumerate(range(5 * sr, n - len(t), 20 * sr)):
         f = 300 + (k * 371) % 2700
         x[s0: s0 + len(t)] += (0.3 * env * np.sin(2 * np.pi * f * t)).astype(np.float32)
-    wavio.write(path, x, sr, subtype="PCM_16")
+    return x
+
+
+def _field_wav(path: str, seconds: float, sr: int, seed: int) -> None:
+    """``_field_signal`` written as PCM16 mono."""
+    from softspoken_tpu_torch.io import wavio
+
+    wavio.write(path, _field_signal(seconds, sr, seed), sr, subtype="PCM_16")
 
 
 def _host_batches(det, wav: str) -> "tuple[int, int]":
@@ -408,8 +435,7 @@ def phase_end_to_end(work: str, wav: str, sr: int, seconds: float) -> dict:
     engine = get_fused_engine(det, sr, "i16")
     rate = engine.device_only_rate(repeats=4)
     log(f"device_only_rate={rate:.2f} audio-s/wall-s")
-    profile_chunks(engine)
-    return launches
+    return launches, profile_chunks(engine)
 
 
 def profile_chunks(engine, repeats: int = 2) -> None:
@@ -447,6 +473,7 @@ def profile_chunks(engine, repeats: int = 2) -> None:
         f"by_group={json.dumps({k: round(v, 3) for k, v in groups.items()})}")
     for ms, n, key in rows[:15]:
         log(f"  {ms:10.3f} ms  x{n:<5d} {key[:110]}")
+    return total
 
 
 def phase_parity(wav: str) -> None:
@@ -497,6 +524,7 @@ def phase_host_path(work: str, wav: str) -> int:
     from softspoken_tpu_torch import Config, cli
     from softspoken_tpu_torch.ckpt import fixture_state_dict
     from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import native
     from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
 
     engine = {"pipeline": "host", "mel_kernel": "pallas"}
@@ -512,18 +540,26 @@ def phase_host_path(work: str, wav: str) -> int:
             ["detect", "--files", wav, "--out", os.path.join(work, f"{name}.csv"),
              "--random-init", "--strict-reference", "--config", conf, *flags])
         reset_launch_counts()
+        native.reset_call_counts()
         torch.cuda.synchronize()
         report = cli.cmd_detect(args)
         torch.cuda.synchronize()
-        launches = dict(KERNEL_LAUNCHES)
+        launches, calls = dict(KERNEL_LAUNCHES), dict(native.NATIVE_CALLS)
         if report["files_done"] != 1 or report["errors"]:
             raise AssertionError(f"host detect {name} failed: {report['errors']}")
         log(f"host {name}: audio_sec_per_wall_sec={report['audio_sec_per_wall_sec']:.2f} "
             f"wall_seconds={report['wall_seconds']:.3f} launches={json.dumps(launches)} "
-            f"windows={n_windows} batches={n_batches}")
+            f"native_calls={json.dumps(calls)} windows={n_windows} batches={n_batches}")
         log(f"host {name} stage_seconds:", json.dumps(report["stage_seconds"]))
         if launches.get("dft_mel", 0) < n_batches:
             raise AssertionError(f"host {name} did not run the dft_mel kernel on every batch")
+        if "decode" in report["stage_seconds"]:
+            log(f"host {name} with the native resampler: audio_sec_per_wall_sec="
+                f"{report['audio_sec_per_wall_sec']:.2f} decode={report['stage_seconds']['decode']:.3f} s; "
+                "with scipy's (PERF.md section 5, the second in-memory run on NVIDIA H100 "
+                "80GB HBM3, 700.00 W): 451.99 and 3.506 s")
+            if not calls.get("resample_f32") or not calls.get("pcm16_to_mono_f32"):
+                raise AssertionError(f"host {name} did not decode through the native library")
         return launches
 
     launches = detect("in_memory_first", engine)  # the path's counts for the record
@@ -762,6 +798,305 @@ def phase_train(work: str, wav: str, smi: str) -> None:
     profile_train_outer(smi)
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the native host DSP, the readers, a deterministic grid, and the
+# trained weights on the card
+def _tests_defs(fname: str, names) -> dict:
+    """The top-level functions and constants ``names`` of ``tests/<fname>``,
+    compiled on their own: the test modules import the JAX package, which
+    this script must not."""
+    import ast
+
+    path = os.path.join(HERE, "tests", fname)
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    body = []
+    for node in tree.body:
+        targets = ([node.name] if isinstance(node, (ast.FunctionDef, ast.ClassDef)) else
+                   [t.id for t in node.targets if isinstance(t, ast.Name)]
+                   if isinstance(node, ast.Assign) else [])
+        if any(t in names for t in targets):
+            body.append(node)
+    import struct
+    import warnings
+
+    ns = {"np": np, "struct": struct, "warnings": warnings}
+    exec(compile(ast.Module(body=body, type_ignores=[]), path, "exec"), ns)
+    missing = [n for n in names if n not in ns]
+    if missing:
+        raise AssertionError(f"tests/{fname} has no {missing}")
+    return ns
+
+
+def _flac_ref():
+    """tests/flac_ref.py, the numpy FLAC encoder (it imports only numpy)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    try:
+        import flac_ref
+    finally:
+        sys.path.pop(0)
+    return flac_ref
+
+
+def phase_native(wav: str, smi: str) -> None:
+    """Builds both g++ libraries (one g++ each, started together), then
+    resamples the 30-minute WAV's samples natively and with scipy."""
+    import scipy.signal
+
+    from softspoken_tpu_torch.io import flac, native, read_mono
+    from softspoken_tpu_torch.io.resample import design_taps
+    from softspoken_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        libs = [f.result() for f in [ex.submit(_build.build_host, n) for n in ("ssdsp", "ssflac")]]
+    log(f"native libraries built in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(os.path.basename(p) for p in libs))
+    if not (native.native_available() and flac.flac_available()):
+        raise AssertionError("the native libraries did not load")
+    native.reset_call_counts()
+    x, sr = read_mono(wav)
+    up, down = 441, 640  # 32000 → 22050 Hz
+    taps = design_taps(up, down)
+    times = {}
+    for name, fn in (("native", lambda: native.resample_f32(x, up, down, taps)),
+                     ("scipy", lambda: scipy.signal.resample_poly(
+                         x.astype(np.float64), up, down, window=taps).astype(np.float32))):
+        best = []
+        for _ in range(2):
+            t = time.perf_counter()
+            y = fn()
+            best.append(time.perf_counter() - t)
+        times[name] = (min(best), y)
+    d = float(np.abs(times["native"][1] - times["scipy"][1]).max())
+    calls = dict(native.NATIVE_CALLS)
+    log(f"resample {len(x) / sr:.0f} s at {sr} Hz to 22050 Hz on the host ({native._threads()} "
+        f"threads, {os.cpu_count()} cores): native {times['native'][0]:.3f} s, scipy "
+        f"{times['scipy'][0]:.3f} s, max_abs_diff={d:.3e} tol=2e-6; native_calls="
+        f"{json.dumps(calls)} | {smi}")
+    if d > 2e-6 or calls.get("resample_f32", 0) < 2 or not calls.get("pcm16_to_mono_f32"):
+        raise AssertionError("the native resampler was not used or disagrees with scipy")
+
+
+def _timed_detect(det, path: str) -> tuple:
+    """(result, wall seconds, stage timers, K1/K2 launches, native calls) of
+    one ``detect_file_streaming``, the counts set to 0 just before."""
+    from softspoken_tpu_torch.io import native
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.runtime.metrics import StageTimers
+
+    timers = StageTimers()
+    reset_launch_counts()
+    native.reset_call_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = det.detect_file_streaming(path, timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, timers.summary(), dict(KERNEL_LAUNCHES), dict(native.NATIVE_CALLS)
+
+
+def phase_flac(work: str, smi: str) -> None:
+    """One PCM16 signal as a WAV and as a mono 16-bit FLAC (tests/flac_ref.py):
+    fused detect in fast mode (timed) and in parity mode, bit-equal grids;
+    the host path with K2, grids within 1e-6; then a stereo 24-bit FLAC on
+    the f32 wire against the same samples as a float WAV."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import wavio
+
+    flac_ref = _flac_ref()
+    sr, seconds = 32000, 120.0
+    x16 = np.clip(np.rint(_field_signal(seconds, sr, seed=17) * 32768), -32768, 32767
+                  ).astype(np.int16)
+    wp, fp = os.path.join(work, "flac_pair.wav"), os.path.join(work, "flac_pair.flac")
+    wavio.write(wp, x16.astype(np.float32) / 32768.0, sr, subtype="PCM_16")
+    t0 = time.perf_counter()
+    flac_ref.write_flac(fp, x16, sr, bits=16)
+    log(f"flac: encoded {seconds:.0f} s at {sr} Hz in {time.perf_counter() - t0:.1f} s "
+        f"({os.path.getsize(fp) / os.path.getsize(wp):.3f} of the WAV's bytes)")
+
+    det = Detector()  # the trained weights, fast mode, fused on the card
+    _timed_detect(det, wp)  # warm
+    runs = {}
+    for path in (wp, fp, fp, wp):
+        kind = "flac" if path == fp else "wav"
+        res, wall, st, launches, calls = _timed_detect(det, path)
+        runs.setdefault(kind, []).append(res)
+        log(f"flac fused fast {kind}: audio_sec_per_wall_sec={seconds / wall:.2f} "
+            f"wall_seconds={wall:.4f} host_fill={st.get('host_fill', 0.0):.4f} "
+            f"launches={json.dumps(launches)} native_calls={json.dumps(calls)} | {smi}")
+        if not launches.get("frame_mel"):
+            raise AssertionError(f"fused detect on the {kind} did not launch frame_mel")
+        if kind == "flac" and not calls.get("flac_read_i32"):
+            raise AssertionError("the FLAC was not read by the native decoder")
+    ref = runs["wav"][0].avg_values
+    same = all(np.array_equal(r.avg_values, ref) for rs in runs.values() for r in rs)
+    log(f"flac fused fast: four grids bit-equal={same} intervals={len(runs['wav'][0].intervals)}")
+    if not same or runs["flac"][0].intervals != runs["wav"][0].intervals:
+        raise AssertionError("fused fast-mode grid of the FLAC differs from the WAV's")
+
+    par = Detector(Config().with_engine(precision="parity"))
+    a, b = par.detect_file_streaming(fp), par.detect_file_streaming(wp)
+    eq = np.array_equal(a.avg_values, b.avg_values)
+    log(f"flac fused parity: grids bit-equal={eq} intervals_equal={a.intervals == b.intervals}")
+    if not eq or a.intervals != b.intervals:
+        raise AssertionError("fused parity grid of the FLAC differs from the WAV's")
+
+    host = Detector(Config().with_engine(pipeline="host", mel_kernel="pallas"))
+    res = {}
+    for kind, path in (("wav", wp), ("flac", fp)):
+        from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res[kind] = host.detect_file(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"flac host K2 {kind}: audio_sec_per_wall_sec={seconds / wall:.2f} "
+            f"launches={json.dumps(dict(KERNEL_LAUNCHES))} | {smi}")
+        if not KERNEL_LAUNCHES.get("dft_mel"):
+            raise AssertionError(f"host detect on the {kind} did not launch dft_mel")
+    d = float(np.abs(res["flac"].avg_values - res["wav"].avg_values).max())
+    log(f"flac host K2: max_abs_diff={d:.3e} tol=1e-6 "
+        f"intervals_equal={res['flac'].intervals == res['wav'].intervals}")
+    if d > 1e-6 or res["flac"].intervals != res["wav"].intervals:
+        raise AssertionError("host grid of the FLAC differs from the WAV's")
+
+    rng = np.random.default_rng(23)
+    x24 = np.clip(np.rint(rng.normal(0, 0.2, (10 * 48000, 2)) * 2 ** 23),
+                  -2 ** 23, 2 ** 23 - 1).astype(np.int64)
+    fp24, wp24 = os.path.join(work, "s24.flac"), os.path.join(work, "s24.wav")
+    flac_ref.write_flac(fp24, x24, 48000, bits=24)
+    wavio.write(wp24, (x24 / 2.0 ** 23).astype(np.float32), 48000, subtype="FLOAT")
+    a, b = det.detect_file_streaming(fp24), det.detect_file_streaming(wp24)
+    eq = np.array_equal(a.avg_values, b.avg_values)
+    log(f"flac stereo 24-bit 48 kHz (f32 wire) vs float WAV: grids bit-equal={eq}")
+    if not eq:
+        raise AssertionError("the stereo 24-bit FLAC differs from its float WAV")
+    for p in (wp, fp, fp24, wp24):
+        os.remove(p)
+
+
+def phase_containers(work: str) -> None:
+    """A 60 s mono PCM16 signal as AIFF and W64 (the writers of
+    tests/test_aiff.py and tests/test_pcm_containers.py) and as a WAV:
+    fused detect gives bit-equal grids."""
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import wavio
+
+    aiff = _tests_defs("test_aiff.py", ["_ext80", "_chunk", "write_aiff"])
+    w64 = _tests_defs("test_pcm_containers.py",
+                      ["_W64_RIFF", "_W64_SUF", "_KS_PCM_SUF", "_w64_chunk", "write_w64"])
+    sr = 32000
+    x16 = np.clip(np.rint(_field_signal(60.0, sr, seed=29) * 32768), -32768, 32767
+                  ).astype(np.int16)
+    x = x16.astype(np.float32) / 32768.0
+    paths = {k: os.path.join(work, f"c.{k}") for k in ("wav", "aiff", "w64")}
+    wavio.write(paths["wav"], x, sr, subtype="PCM_16")
+    aiff["write_aiff"](paths["aiff"], x16[:, None], sr)
+    w64["write_w64"](paths["w64"], x[:, None], sr)
+    det = Detector()
+    ref = det.detect_file_streaming(paths["wav"])
+    for k in ("aiff", "w64"):
+        res, wall, _st, launches, _c = _timed_detect(det, paths[k])
+        eq = np.array_equal(res.avg_values, ref.avg_values)
+        log(f"containers {k}: grid bit-equal to the WAV's={eq} "
+            f"audio_sec_per_wall_sec={60.0 / wall:.2f} launches={json.dumps(launches)}")
+        if not eq or res.intervals != ref.intervals:
+            raise AssertionError(f"fused detect on the {k} differs from the WAV")
+    for p in paths.values():
+        os.remove(p)
+
+
+def phase_determinism(wav: str, chunk_device_ms: float, smi: str) -> None:
+    """Fused detect twice in fast mode on the 30-minute WAV: bit-equal grids.
+    The grid update alone, timed against the index_add_ pair it replaced."""
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine import regions as R
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+
+    det = Detector()
+    a, b = det.detect_file_streaming(wav), det.detect_file_streaming(wav)
+    eq = np.array_equal(a.avg_values, b.avg_values)
+    log(f"determinism: two fused fast runs on the 30-min WAV, grids bit-equal={eq} "
+        f"windows={a.num_windows} intervals={len(a.intervals)}")
+    if not eq or a.intervals != b.intervals:
+        raise AssertionError("two fused runs of one file gave different grids")
+    eng = get_fused_engine(det, 32000, "i16")
+    cw = eng.chunk_w
+    bins = R.window_bin_offset(np.arange(cw), det.cfg.engine.step_seconds).astype(np.int64)
+    dev = det.device
+    place = eng._placement(bins, cw)
+    if isinstance(place, torch.Tensor):
+        place = place.to(dev)
+    vals = torch.randn(cw, 256, device=dev)
+    valid = torch.ones(cw, device=dev)
+    idx = (torch.from_numpy(bins).to(dev)[:, None] + torch.arange(256, device=dev)).reshape(-1)
+
+    def ordered():
+        eng._accumulate(torch.stack([vals * valid[:, None],
+                                     valid[:, None].expand(cw, 256)]), place)
+
+    def index_add():
+        s = torch.zeros(eng.glen, device=dev)
+        s.index_add_(0, idx, (vals * valid[:, None]).reshape(-1))
+        c = torch.zeros(eng.glen, device=dev)
+        c.index_add_(0, idx, valid[:, None].expand(cw, 256).reshape(-1))
+
+    t_new, t_old = cuda_time_ms(ordered), cuda_time_ms(index_add)
+    log(f"grid update per chunk ({cw} windows): ordered blocks {t_new:.4f} ms, the "
+        f"index_add_ pair it replaced {t_old:.4f} ms; chunk programs' device time in this "
+        f"run's profile: {chunk_device_ms:.3f} ms for 3 (before this change, PERF.md "
+        f"section 5: 105.980 ms) | {smi}")
+
+
+def phase_trained(work: str, smi: str) -> None:
+    """``Detector()`` runs the trained checkpoint (epoch 48750); 8 labeled
+    120 s fields at 32 kHz, detected in fast and parity mode, scored with
+    frame and event F1 against their labels."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.train.evaluate import event_metrics, frame_metrics
+    from softspoken_tpu_torch.train.synth import synth_field_recording
+
+    fast = Detector()
+    if fast.epoch != 48750:
+        raise AssertionError(f"Detector() loaded epoch {fast.epoch}, not the trained 48750")
+    par = Detector(Config().with_engine(precision="parity"))
+    sr, seconds = 32000, 120.0
+    scores = {"fast": [], "parity": []}
+    same, worst_diff = 0, 0.0
+    t0 = time.perf_counter()
+    for seed in range(8):
+        audio, truth = synth_field_recording(np.random.default_rng(seed), seconds, sr=sr)
+        path = os.path.join(work, f"field_{seed}.wav")
+        wavio.write(path, audio, sr, subtype="PCM_16")
+        res = {m: d.detect_file_streaming(path) for m, d in (("fast", fast), ("parity", par))}
+        for m, r in res.items():
+            scores[m].append((frame_metrics(r.intervals, truth, seconds)["f1"],
+                              event_metrics(r.intervals, truth)["f1"]))
+        same += res["fast"].intervals == res["parity"].intervals
+        worst_diff = max(worst_diff, float(np.abs(res["fast"].avg_values
+                                                  - res["parity"].avg_values).max()))
+        os.remove(path)
+    summary = {}
+    for m, sc in scores.items():
+        f = np.array(sc)
+        summary[m] = (float(f[:, 0].mean()), float(f[:, 0].min()),
+                      float(f[:, 1].mean()), float(f[:, 1].min()))
+        log(f"trained {m}: frame F1 mean={summary[m][0]:.4f} worst={summary[m][1]:.4f}; "
+            f"event F1 mean={summary[m][2]:.4f} worst={summary[m][3]:.4f}; per field "
+            + " ".join(f"{a:.3f}/{b:.3f}" for a, b in sc) + f" | {smi}")
+    gap = summary["parity"][0] - summary["fast"][0]
+    log(f"trained fast vs parity: mean frame F1 gap={gap:.4f} (tol 0.01), fields with "
+        f"identical intervals {same}/8, largest grid diff={worst_diff:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s for 8 fields")
+    if gap > 0.01 or min(summary["fast"][0], summary["parity"][0]) < 0.80:
+        raise AssertionError("the trained weights score below the gate on the card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
@@ -793,11 +1128,17 @@ def main() -> int:
         _field_wav(wav60, 60.0, sr, seed=5)
         log(f"wrote {seconds:.0f} s and 60 s {sr} Hz PCM16 WAVs in "
             f"{time.perf_counter() - t1:.1f} s")
-        k1["launches"] = phase_end_to_end(work, wav, sr, seconds).get("frame_mel", 0)
+        phase_native(wav, smi)
+        launches, chunk_device_ms = phase_end_to_end(work, wav, sr, seconds)
+        k1["launches"] = launches.get("frame_mel", 0)
         phase_parity(wav60)
         k2["launches"] = phase_host_path(work, wav)
         phase_host_parity(wav60)
         phase_train(work, wav60, smi)
+        phase_flac(work, smi)
+        phase_containers(work)
+        phase_determinism(wav, chunk_device_ms, smi)
+        phase_trained(work, smi)
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

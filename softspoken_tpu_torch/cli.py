@@ -1,7 +1,11 @@
 """Command line: ``python -m softspoken_tpu_torch detect --files … --out …``
 and ``python -m softspoken_tpu_torch train --synthetic --steps N --out model.pth``.
 
-Runs on the CUDA card by default (``--device cpu`` to run on the CPU).
+Runs on the CUDA card by default (``--device cpu`` to run on the CPU), with
+the trained weights of ``root/models/spec_unet_2d/model_checkpoint.pth``
+unless ``--checkpoint`` or ``--random-init`` says otherwise.  Reads WAV
+(RF64, RIFX, G.711, ADPCM), FLAC, AIFF/AIFC, W64, CAF, AU and SPHERE; an
+MP3, Ogg Vorbis or Opus file is recorded as an error naming its format.
 The pipeline, mel kernel and resampler are chosen in the ``--config`` JSON
 (``{"engine": {"pipeline": "host", "mel_kernel": "pallas"}}``), as with the
 JAX package's CLI.  Prints a JSON report and exits nonzero when any file
@@ -167,10 +171,12 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
     d = sub.add_parser("detect", help="run voice detection on audio files")
     d.add_argument("--config", help="JSON config file overriding defaults")
-    d.add_argument("--files", nargs="+", required=True, help="WAV files")
+    d.add_argument("--files", nargs="+", required=True,
+                   help="audio files (WAV, FLAC, AIFF, W64, CAF, AU, SPHERE)")
     d.add_argument("--out", help="detections CSV (default detections.csv)")
     g = d.add_mutually_exclusive_group()
-    g.add_argument("--checkpoint", help="reference .pth checkpoint")
+    g.add_argument("--checkpoint", help="reference .pth checkpoint (default: the "
+                   "trained root/models/spec_unet_2d/model_checkpoint.pth)")
     g.add_argument("--random-init", action="store_true",
                    help="use the deterministic random-init fixture weights")
     d.add_argument("--precision", choices=["fast", "parity"])

@@ -108,9 +108,15 @@ class EngineConfig:
     scan_unroll: int = 1
 
 
+# the checkout holding this package: the trained checkpoint ships under it
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 @dataclass(frozen=True)
 class PathsConfig:
-    model_dir: str = os.path.join(".", "root", "models", "spec_unet_2d")
+    # the trained weights (48,750 steps), exported from the orbax checkpoint
+    # beside them; found from any working directory
+    model_dir: str = os.path.join(_CHECKOUT, "root", "models", "spec_unet_2d")
     model_name: str = "model_checkpoint.pth"
     project_dir: str = os.path.join(".", "projects")
     user_guide_url: str = "https://github.com/AVianEco/Softspoken"

@@ -33,6 +33,11 @@ The detection path computes the mask head only (``SpecUNet2D.mask_logits``);
 (``engine.music_filter``), chunk journaling (``chunk_checkpoint_every``,
 ``journal_dir``), the lossy upload wires, ``decoder_upsample="phase"``,
 ``conv_impl="packed"`` and orbax checkpoint directories.
+
+Without ``state_dict`` or ``checkpoint_path`` the detector loads the
+trained weights, ``root/models/spec_unet_2d/model_checkpoint.pth`` in the
+checkout (exported from the orbax checkpoint beside it); only a path that
+does not exist degrades to the random fixture, as the reference does.
 """
 
 from __future__ import annotations

@@ -11,6 +11,12 @@ on the device as a carry, so chunking never changes results.  The host reads
 chunk k+depth and uploads it on a side stream while the card computes chunk
 k, and fetches every chunk's grid in one transfer at the end.
 
+The grid sums each bin's windows in a fixed order, so a run gives the same
+bits every time: at the default step (0.6 s, p = 5, ``grid_tile_period``)
+as p disjoint contiguous blocks added in group order, as the JAX package
+does; at a step that does not tile, as a per-bin gather of its covering
+windows summed in window order.
+
 Numerics: this path resamples the zero-padded native stream, where a host
 pipeline would resample first and pad in the internal domain; the two differ
 only within a filter length (~1.5 ms) of the ±3 s pad joins.  Hold it
@@ -23,18 +29,43 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
+from functools import lru_cache
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..io import wavio
+from ..io import flac, wavio
+from ..io.audio import probe, read_mono
 from ..io.resample import _ratio, polyphase_apply, polyphase_block_geometry
 from . import regions as R
 from .detector import DetectionResult, Detector, _not_ported
 from .planner import num_windows_for_padded_length, window_starts
 
 CARRY = 512  # bins of inter-chunk grid overlap (needs ≥ 256 − min bin stride)
+
+
+@lru_cache(maxsize=16)
+def grid_tile_period(step_seconds: float, max_p: int = 8,
+                     n_check: int = 1 << 22) -> Optional[int]:
+    """Smallest p such that windows i and i+p tile the score grid exactly:
+    ``window_bin_offset(i+p) == window_bin_offset(i) + 256`` for every i
+    (the JAX package's ``engine/fused.py::grid_tile_period``).
+
+    When it exists (default step 0.6 s: p = 5, since step/Δt = 256/5), the
+    overlap sum decomposes into p disjoint contiguous blocks: group g =
+    windows {g, g+p, g+2p, …} covers [bins[g], bins[g]+256·n_g) gap-free.
+    Verified over ``n_check`` windows (4M ≈ 29 days of audio at 0.6 s;
+    ~0.2 s of host time, so cached: every new detector builds its engines);
+    ``run`` re-verifies against the bins it uses.
+    """
+    i = np.arange(n_check, dtype=np.int64)
+    bins = R.window_bin_offset(i, step_seconds)
+    for p in range(1, max_p + 1):
+        G = int(np.rint(p * step_seconds / R.TIME_RESOLUTION))
+        if G == 256 and bool(np.all(bins[p:] == bins[:-p] + G)):
+            return p
+    return None
 
 
 class FusedStreamingEngine:
@@ -68,7 +99,11 @@ class FusedStreamingEngine:
             int(round((self.chunk_w - 1) * step / dt)) + 256,
         ) + 2
         self.glen = max(scatter_extent, fin_upper + CARRY)
-        self._lanes = torch.arange(256, device=self.device)
+        self._tile_p = grid_tile_period(step)
+        if self._tile_p is not None:
+            # a full group's block must fit even from a tail chunk's padding
+            # offset 0 (its values are zero there)
+            self.glen = max(self.glen, -(-self.chunk_w // self._tile_p) * 256)
 
         if self.up == 1 and self.down == 1:
             self.W = None
@@ -84,11 +119,11 @@ class FusedStreamingEngine:
 
     # ------------------------------------------------------------------
     def _program(self, native: torch.Tensor, lo: int, fin: int,
-                 starts: torch.Tensor, bins: torch.Tensor, valid: torch.Tensor,
+                 starts: torch.Tensor, place, valid: torch.Tensor,
                  carry_sum: torch.Tensor, carry_cnt: torch.Tensor):
         """One chunk: native (in_len,) → (avg, cnt, carry_sum', carry_cnt'),
-        avg/cnt of length glen.  ``bins`` (chunk_w,) int64 on the device,
-        range-checked on the host by ``_check_bins``."""
+        avg/cnt of length glen.  ``place`` is the grid placement that
+        ``_placement`` made and checked on the host."""
         x = native.to(torch.float32)
         if self.kind == "i16":
             x = x * (1.0 / 32768.0)
@@ -102,14 +137,9 @@ class FusedStreamingEngine:
 
         logits = torch.cat([self.det._forward(internal, starts[i])
                             for i in range(self.nb)])          # (chunk_w, 256)
-        # overlap grid: one scatter-add for any step size (tail-chunk padding
-        # windows add zeros at bin 0); on the card the adds into one bin land
-        # in any order, so sums may differ in the last ulp from run to run
-        idx = (bins[:, None] + self._lanes).reshape(-1)
-        sum_g = torch.zeros(self.glen, dtype=torch.float32, device=self.device)
-        sum_g.index_add_(0, idx, (logits * valid[:, None]).reshape(-1))
-        cnt_g = torch.zeros_like(sum_g)
-        cnt_g.index_add_(0, idx, valid[:, None].expand(self.chunk_w, 256).reshape(-1))
+        sum_g, cnt_g = self._accumulate(
+            torch.stack([logits * valid[:, None], valid[:, None].expand(self.chunk_w, 256)]),
+            place)
         sum_g[:CARRY] += carry_sum
         cnt_g[:CARRY] += carry_cnt
         if not 0 <= fin <= self.glen - CARRY:
@@ -117,12 +147,62 @@ class FusedStreamingEngine:
         avg = sum_g / torch.clamp(cnt_g, min=1.0)
         return avg, cnt_g, sum_g[fin: fin + CARRY].clone(), cnt_g[fin: fin + CARRY].clone()
 
-    def _check_bins(self, bins: np.ndarray) -> None:
-        """Every grid index bins[i] + [0, 256) lies in [0, glen): an index past
-        the grid would corrupt the carry or trip a device-side assert."""
-        if int(bins.min()) < 0 or int(bins.max()) + 256 > self.glen:
-            raise RuntimeError(f"grid scatter out of range: bins [{bins.min()}, "
-                               f"{bins.max()}] + 256 > glen={self.glen}")
+    def _accumulate(self, vals: torch.Tensor, place) -> torch.Tensor:
+        """(k, chunk_w, 256) per-window values → (k, glen) grid sums, each
+        bin's terms added in a fixed order (no atomics, so no run-to-run
+        drift)."""
+        k = vals.shape[0]
+        if self._tile_p is not None:
+            # group g = windows g, g+p, …: one contiguous block at place[g],
+            # copied into row g; the rows are added in order g = 0..p-1, the
+            # JAX package's sum of p block updates
+            p = self._tile_p
+            rows = vals.new_zeros((p, k, self.glen))
+            for g, off in enumerate(place):
+                grp = vals[:, g::p]
+                rows[g, :, off: off + grp.shape[1] * 256].view(k, -1, 256).copy_(grp)
+            out = rows[0]
+            for g in range(1, p):
+                out = out + rows[g]
+            return out
+        # place (glen, K): flat indices of each bin's covering windows in
+        # window order, padded with the index of an appended zero
+        flat = torch.cat([vals.reshape(k, -1), vals.new_zeros((k, 1))], dim=1)
+        cols = flat[:, place]                              # (k, glen, K)
+        out = cols[..., 0]
+        for j in range(1, cols.shape[2]):
+            out = out + cols[..., j]
+        return out
+
+    def _placement(self, bins: np.ndarray, n: int):
+        """Host side of the grid update for a chunk whose first ``n`` of
+        ``chunk_w`` windows are real, at local bin offsets ``bins``: the p
+        block offsets (a tiling step) or the (glen, K) gather table, every
+        index checked to lie in [0, glen)."""
+        if n <= 0:
+            raise RuntimeError("a chunk without windows")
+        if self._tile_p is not None:
+            p = self._tile_p
+            place = [int(bins[g]) for g in range(p)]
+            for g, off in enumerate(place):
+                n_g = len(range(g, self.chunk_w, p))
+                if off < 0 or off + 256 * n_g > self.glen:
+                    raise RuntimeError(f"grid block out of range: group {g} at {off} "
+                                       f"+ {256 * n_g} > glen={self.glen}")
+            return place
+        b = bins[:n].astype(np.int64)
+        if int(b.min()) < 0 or int(b.max()) + 256 > self.glen:
+            raise RuntimeError(f"grid scatter out of range: bins [{b.min()}, "
+                               f"{b.max()}] + 256 > glen={self.glen}")
+        target = (b[:, None] + np.arange(256)).ravel()    # bin of flat index i*256+l
+        order = np.argsort(target, kind="stable")         # window order within a bin
+        counts = np.bincount(target, minlength=self.glen)
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rank = np.arange(order.size) - first[target[order]]
+        table = np.full((self.glen, max(1, int(counts.max()))),
+                        self.chunk_w * 256, np.int64)     # sentinel: the appended zero
+        table[target[order], rank] = order
+        return torch.from_numpy(table)
 
     # ------------------------------------------------------------------
     def device_only_rate(self, repeats: int = 8) -> float:
@@ -133,19 +213,20 @@ class FusedStreamingEngine:
         step = cfg.engine.step_seconds
         starts = np.minimum(np.arange(self.chunk_w, dtype=np.int64) * cfg.samples_per_step,
                             self.buf_len - cfg.samples_per_window).astype(np.int32)
-        bins_np = R.window_bin_offset(np.arange(self.chunk_w), step)
-        self._check_bins(bins_np)
-        bins = torch.from_numpy(bins_np.astype(np.int64)).to(self.device)
+        place = self._placement(R.window_bin_offset(np.arange(self.chunk_w), step),
+                                self.chunk_w)
+        if isinstance(place, torch.Tensor):
+            place = place.to(self.device)
         native = torch.zeros(self.in_len, dtype=self._dtype, device=self.device)
         st = torch.from_numpy(starts.reshape(self.nb, self.B)).to(self.device)
         valid = torch.ones(self.chunk_w, dtype=torch.float32, device=self.device)
         cs = torch.zeros(CARRY, device=self.device)
         cc = torch.zeros(CARRY, device=self.device)
-        self._program(native, 0, 0, st, bins, valid, cs, cc)
+        self._program(native, 0, 0, st, place, valid, cs, cc)
         self._sync()
         t0 = time.perf_counter()
         for _ in range(repeats):
-            avg, _, cs, cc = self._program(native, 0, 0, st, bins, valid, cs, cc)
+            avg, _, cs, cc = self._program(native, 0, 0, st, place, valid, cs, cc)
         self._sync()
         wall = time.perf_counter() - t0
         return repeats * self.chunk_w * step / wall
@@ -183,6 +264,10 @@ class FusedStreamingEngine:
         starts_g = window_starts(n_windows, cfg)
         bins_g = R.window_bin_offset(np.arange(n_windows), cfg.engine.step_seconds)
         covered = int(bins_g[-1]) + 256
+        p = self._tile_p
+        if p is not None and n_windows > p and not np.all(bins_g[p:] == bins_g[:-p] + 256):
+            raise RuntimeError(f"grid tile period {p} violated by the window offsets "
+                               f"of {n_windows} windows")
 
         def read_padded(start: int, frames: int, out: np.ndarray) -> None:
             """Native padded-stream samples [start, start+frames) into out."""
@@ -235,20 +320,22 @@ class FusedStreamingEngine:
             valid[:n] = 1.0
             if int(starts_l.max()) + cfg.samples_per_window > self.buf_len:
                 raise RuntimeError("window start past the chunk buffer")
-            self._check_bins(bins_l)
-            meta = [torch.from_numpy(a) for a in (starts_l, bins_l, valid)]
+            place = self._placement(bins_l, n)
+            host = [staging_t, torch.from_numpy(starts_l), torch.from_numpy(valid)]
+            if isinstance(place, torch.Tensor):
+                host.append(place)
             if cuda:
-                meta = [t.pin_memory() for t in meta]
+                host = [host[0]] + [t.pin_memory() for t in host[1:]]
             if timers is not None:
                 timers.add("host_fill", time.perf_counter() - t_fill)
-            return (staging_t, *meta), lo, fin, w1
+            return host, place, lo, fin, w1
 
         up_stream = torch.cuda.Stream(self.device) if cuda else None
 
         def upload(fill_fut):
             """Wire side of one chunk (upload thread): async copies of the
             pinned payload on a side stream, with an event to wait on."""
-            host, lo, fin, w1 = fill_fut.result()
+            host, place, lo, fin, w1 = fill_fut.result()
             t_put = time.perf_counter()
             ev = None
             with torch.cuda.stream(up_stream) if cuda else nullcontext():
@@ -256,9 +343,11 @@ class FusedStreamingEngine:
                 if cuda:
                     ev = torch.cuda.Event()
                     ev.record(up_stream)
+            if isinstance(place, torch.Tensor):
+                place = dev[3]
             if timers is not None:
                 timers.add("device_put", time.perf_counter() - t_put)
-            return dev, ev, lo, fin, w1
+            return dev, place, ev, lo, fin, w1
 
         carry_sum = torch.zeros(CARRY, dtype=torch.float32, device=self.device)
         carry_cnt = torch.zeros_like(carry_sum)
@@ -270,7 +359,7 @@ class FusedStreamingEngine:
                          for ci in range(min(depth, n_chunks)))
             for ci in range(n_chunks):
                 with tt("wait_prepare"):
-                    dev, ev, lo, fin, w1 = futs.popleft().result()
+                    dev, place, ev, lo, fin, w1 = futs.popleft().result()
                 if ci + depth < n_chunks:
                     futs.append(up_ex.submit(upload, fill_ex.submit(prepare, ci + depth)))
                 with tt("dispatch"):
@@ -279,9 +368,9 @@ class FusedStreamingEngine:
                         cur.wait_event(ev)
                         for t in dev:  # allocated on the side stream, used here
                             t.record_stream(cur)
-                    native, starts_d, bins_d, valid_d = dev
+                    native, starts_d, valid_d = dev[:3]
                     avg, _cnt, carry_sum, carry_cnt = self._program(
-                        native, lo, fin, starts_d.view(self.nb, self.B), bins_d,
+                        native, lo, fin, starts_d.view(self.nb, self.B), place,
                         valid_d, carry_sum, carry_cnt)
                 pending.append((fin, avg))
                 if progress is not None:
@@ -319,7 +408,7 @@ def get_fused_engine(detector: Detector, native_sr: int, kind: str) -> FusedStre
 
 
 def _wire_kind(detector: Detector) -> str:
-    """Upload wire for a PCM16 source; "auto" and "pcm16" are the exact
+    """Upload wire for a 16-bit source; "auto" and "pcm16" are the exact
     int16 wire (the lossy mu-law and ADPCM wires are a later slice)."""
     codec = detector.cfg.engine.upload_codec
     if codec not in ("auto", "pcm16"):
@@ -332,23 +421,40 @@ def detect_file_fused(
     progress: Optional[Callable[[float], None]] = None,
     journal_dir: Optional[str] = None, timers=None,
 ) -> DetectionResult:
-    """Whole-file detection through the fused device pipeline.
+    """Whole-file detection through the fused device pipeline, with the JAX
+    package's dispatch on ``io.audio.probe`` over the exact wires:
 
-    PCM16 mono WAV streams raw int16 to the device; every other WAV subtype
-    (24/32-bit, float, multichannel) is decoded and downmixed on the host
-    and rides the float32 wire.
+      * mono FLAC of ≤16 bits streams int16 (a b-bit sample shifted to 16
+        bits, ÷32768 on the device, equals the float path's v/2^(b−1));
+      * any other FLAC decodes and downmixes on its sequential reader;
+      * mono PCM16 WAV streams its raw int16 from one persistent handle;
+      * every other readable format is decoded and downmixed on the host
+        (``read_mono``) and rides the float32 wire.
     """
     if journal_dir or detector.cfg.engine.chunk_checkpoint_every > 0:
         raise _not_ported("chunk journaling (engine.chunk_checkpoint_every)")
     kind = _wire_kind(detector)
-    with wavio.RawReader(path) as reader:
-        inf = reader.info
-        if inf.subtype == "PCM_16" and inf.channels == 1:
+    inf = probe(path)
+    if inf.subtype.startswith("FLAC"):
+        if inf.channels == 1 and inf.bits_per_sample <= 16:
+            with flac.SequentialMonoReader(path, dtype="i16") as smr:
+                engine = get_fused_engine(detector, inf.samplerate, kind)
+                return engine.run(smr.read, inf.frames, progress, timers=timers)
+        with flac.SequentialMonoReader(path) as smr:
+            engine = get_fused_engine(detector, inf.samplerate, "f32")
+            return engine.run(smr.read, inf.frames, progress, timers=timers)
+
+    if isinstance(inf, wavio.WavInfo) and inf.subtype == "PCM_16" and inf.channels == 1:
+        with wavio.RawReader(path) as reader:
             def read_native(start: int, frames: int) -> np.ndarray:
                 reader.will_need(start + frames, frames)  # prefetch the next chunk
                 return reader.read_raw(start, frames).view("<i2")
 
             engine = get_fused_engine(detector, inf.samplerate, kind)
             return engine.run(read_native, inf.frames, progress, timers=timers)
-        engine = get_fused_engine(detector, inf.samplerate, "f32")
-        return engine.run(reader.read_mono_f32, inf.frames, progress, timers=timers)
+
+    def read_f32(start: int, frames: int) -> np.ndarray:
+        return read_mono(path, start=start, frames=frames)[0]
+
+    engine = get_fused_engine(detector, inf.samplerate, "f32")
+    return engine.run(read_f32, inf.frames, progress, timers=timers)

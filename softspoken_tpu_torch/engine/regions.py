@@ -112,3 +112,15 @@ def find_speech_regions(
 def shift_regions(regions, offset_seconds: float) -> List[Tuple[float, float]]:
     """Apply the −pad shift (worker.py:100)."""
     return [(s + offset_seconds, e + offset_seconds) for (s, e) in regions]
+
+
+def merge_intervals(intervals, gap: float = 0.3) -> List[Tuple[float, float]]:
+    """Sort and merge intervals whose gap is ≤ ``gap`` seconds (the label
+    merge of ``train/synth.synth_field_recording``)."""
+    merged: List[Tuple[float, float]] = []
+    for s, e in sorted(intervals):
+        if merged and s - merged[-1][1] <= gap:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], e))
+        else:
+            merged.append((s, e))
+    return merged

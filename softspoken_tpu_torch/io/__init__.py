@@ -1,4 +1,5 @@
-"""Audio input: the WAV reader, loading and streaming, and the resampler."""
+"""Audio input: the readers (WAV/RF64/RIFX, FLAC, AIFF, W64, CAF, AU,
+SPHERE), loading and streaming, the native host DSP and the resampler."""
 
 from . import wavio
 from .audio import (
@@ -7,15 +8,16 @@ from .audio import (
     internal_length,
     load_audio,
     load_audio_startstop,
+    probe,
+    read_any,
     read_mono,
     stream_chunks,
     to_mono,
 )
 from .resample import resample, resampled_length
-from .wavio import probe
 
 __all__ = [
-    "wavio", "probe", "AudioChunk", "get_audio_data", "internal_length",
-    "load_audio", "load_audio_startstop", "read_mono", "stream_chunks",
-    "to_mono", "resample", "resampled_length",
+    "wavio", "probe", "read_any", "AudioChunk", "get_audio_data",
+    "internal_length", "load_audio", "load_audio_startstop", "read_mono",
+    "stream_chunks", "to_mono", "resample", "resampled_length",
 ]

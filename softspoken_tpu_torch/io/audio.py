@@ -1,9 +1,12 @@
-"""Audio loading with the reference's semantics, over the port's WAV reader.
+"""Audio loading with the reference's semantics, over the port's readers.
 
 Mirrors the behaviour (not the implementation) of the reference's
 ``root/code/backend/voice_activity.py`` and the JAX package's
 ``io/audio.py``:
 
+  * ``probe`` / ``read_any`` — format sniffing in the JAX package's order:
+                                WAV/RF64/RIFX, FLAC, AIFF/AIFC, then the
+                                PCM containers (W64, CAF, AU, SPHERE)
   * ``get_audio_data``        — voice_activity.py:23-30 (header-only probe)
   * ``load_audio``            — voice_activity.py:32-69 (whole file or a 3 s
                                 slice, channel-mean downmix, resample to
@@ -14,9 +17,8 @@ Mirrors the behaviour (not the implementation) of the reference's
                                 multi-hour recordings (the host pipeline's
                                 streaming decode)
 
-WAV only (``io/wavio.py``): FLAC, MP3, Ogg, Opus, AIFF and the other
-containers raise ``NotImplementedError`` naming the format, since their
-readers are a later slice of the port.
+MP3, Ogg Vorbis and Opus raise ``NotImplementedError`` naming the format:
+their readers are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -31,19 +33,112 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG
-from . import wavio
+from . import aiff, au, caf, flac, native, sphere, w64, wavio
 from .resample import design_taps, get_device_resampler, resample, resampled_length
 
 log = logging.getLogger(__name__)
 
 _SR = DEFAULT_CONFIG.dsp.sample_rate  # 22050
-# what a corrupt or truncated WAV raises while it is read
+# what a corrupt or truncated file raises while it is read (every reader's
+# format error is a ValueError); NotImplementedError is not among them
 _DECODE_ERRORS = (OSError, ValueError, struct.error)
+
+
+def _pcm_container_mods():
+    """(is_x, info, read) per self-contained PCM container reader, checked
+    after FLAC and AIFF: their magics are exact, where MP3's sniff could
+    match raw PCM payloads."""
+    return (
+        (w64.is_w64, w64.info, w64.read),
+        (caf.is_caf, caf.info, caf.read),
+        (au.is_au, au.info, au.read),
+        (sphere.is_sphere, sphere.info, sphere.read),
+    )
+
+
+def _mp3_frame_header(b: bytes) -> bool:
+    """A structurally valid MPEG audio frame header (the JAX package's
+    ``mp3._valid_frame_header``)."""
+    if len(b) < 4 or b[0] != 0xFF or (b[1] & 0xE0) != 0xE0:
+        return False
+    if (b[1] >> 3) & 0x3 == 1 or (b[1] >> 1) & 0x3 == 0:  # reserved version, layer
+        return False
+    if b[2] >> 4 in (0, 15):                              # free-format / invalid bitrate
+        return False
+    return (b[2] >> 2) & 0x3 != 3                         # reserved samplerate
+
+
+def _head(path: str, n: int) -> bytes:
+    try:
+        with open(path, "rb") as f:
+            return f.read(n)
+    except OSError:
+        return b""
+
+
+def _raise_unported(fmt: Optional[str]) -> None:
+    if fmt is not None:
+        raise NotImplementedError(
+            f"{fmt} file: this reader is a later slice of the PyTorch port; "
+            "convert the file to WAV or FLAC")
+
+
+def _ogg_format(path: str) -> Optional[str]:
+    """"Ogg Opus" / "Ogg Vorbis" for an Ogg file, else None."""
+    head = _head(path, 65536)
+    if head[:4] != b"OggS":
+        return None
+    return "Ogg Opus" if b"OpusHead" in head else "Ogg Vorbis"
+
+
+def _mp3_format(path: str) -> Optional[str]:
+    """"MP3" for an ID3 tag or a valid MPEG frame header at byte 0, else None
+    (the JAX package's ``mp3.is_mp3``)."""
+    head = _head(path, 4)
+    return "MP3" if head[:3] == b"ID3" or _mp3_frame_header(head) else None
+
+
+def probe(path: str):
+    """Format-sniffing header probe: ``WavInfo``, ``FlacInfo`` or another
+    container's info, all with samplerate / channels / frames / subtype /
+    bits_per_sample / duration."""
+    try:
+        return wavio.info(path)
+    except wavio.WavFormatError:
+        if flac.is_flac(path):
+            return flac.info(path)
+        if aiff.is_aiff(path):
+            return aiff.info(path)
+        _raise_unported(_ogg_format(path))
+        for is_x, info_x, _read in _pcm_container_mods():
+            if is_x(path):
+                return info_x(path)
+        _raise_unported(_mp3_format(path))
+        raise
+
+
+def read_any(
+    path: str, start: int = 0, frames: Optional[int] = None, always_2d: bool = False
+) -> Tuple[np.ndarray, int]:
+    """Format-dispatching ``wavio.read``: (float32 samples, sample rate)."""
+    try:
+        return wavio.read(path, start=start, frames=frames, always_2d=always_2d)
+    except wavio.WavFormatError:
+        if flac.is_flac(path):
+            return flac.read(path, start=start, frames=frames, always_2d=always_2d)
+        if aiff.is_aiff(path):
+            return aiff.read(path, start=start, frames=frames, always_2d=always_2d)
+        _raise_unported(_ogg_format(path))
+        for is_x, _info, read_x in _pcm_container_mods():
+            if is_x(path):
+                return read_x(path, start=start, frames=frames, always_2d=always_2d)
+        _raise_unported(_mp3_format(path))
+        raise
 
 
 def get_audio_data(path: str) -> Tuple[float, int]:
     """(duration_seconds, native_sample_rate) without loading samples."""
-    inf = wavio.probe(path)
+    inf = probe(path)
     return inf.duration, inf.samplerate
 
 
@@ -56,10 +151,23 @@ def to_mono(data: np.ndarray) -> np.ndarray:
 
 def read_mono(path: str, start: int = 0,
               frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """(float32 mono samples of a frame range, native sample rate)."""
-    with wavio.RawReader(path) as r:
-        n = r.info.frames - start if frames is None else frames
-        return r.read_mono_f32(start, n), r.info.samplerate
+    """(float32 mono samples of a frame range, native sample rate).
+
+    A PCM16 WAV decodes and downmixes in one native pass; every other
+    format takes the generic decode and the channel mean.
+    """
+    if native.native_available():
+        try:
+            raw, inf = wavio.read_raw(path, start=start, frames=frames,
+                                      want_subtype="PCM_16")
+        except wavio.WavFormatError:
+            raw = None  # not a WAV: read_any below
+        if raw is not None:
+            out = native.pcm16_to_mono_f32(raw.view("<i2"), inf.channels)
+            if out is not None:
+                return out, inf.samplerate
+    data, sr = read_any(path, start=start, frames=frames)
+    return to_mono(np.asarray(data, np.float32)), sr
 
 
 def load_audio(
@@ -77,7 +185,7 @@ def load_audio(
         if start is None:
             data, sr = read_mono(path)
         else:
-            sr = wavio.probe(path).samplerate
+            sr = probe(path).samplerate
             data, sr = read_mono(path, start=int(start * (sr / target_sr)),
                                  frames=int(sr * 3))
     except _DECODE_ERRORS as e:
@@ -98,15 +206,16 @@ def load_audio_startstop(
         log.error("invalid start/stop (%s, %s)", start, stop)
         return None, None
     try:
-        inf = wavio.probe(path)
+        inf = probe(path)
         read_start = int(start * inf.samplerate)
         read_stop = min(int(stop * inf.samplerate), inf.frames)
-        data, sr = read_mono(path, start=read_start, frames=read_stop - read_start)
+        data, sr = read_any(path, start=read_start, frames=read_stop - read_start)
     except _DECODE_ERRORS as e:
         log.error("failed to read %s: %s", path, e)
         return None, None
     if data.size == 0:
         return None, None
+    data = to_mono(np.asarray(data, np.float32))
     if sr != target_sr:
         data = resample(data, sr, target_sr)
         sr = target_sr
@@ -125,7 +234,7 @@ class AudioChunk:
 
 def internal_length(path: str, target_sr: int = _SR) -> int:
     """Length of the file after downmix + resample, without decoding."""
-    inf = wavio.probe(path)
+    inf = probe(path)
     return resampled_length(inf.frames, inf.samplerate, target_sr)
 
 
@@ -140,23 +249,42 @@ def stream_chunks(
 
     Each chunk resamples a native range with the filter's context on both
     sides, so the chunks concatenated reproduce ``load_audio`` to float
-    round-off.  ``backend``: "host" (scipy polyphase) or "device" (one
-    polyphase GEMM per chunk on ``device``, default the CUDA card).  One
-    file handle, with sequential readahead hints, serves the whole file and
-    is closed when the generator ends or is dropped.
+    round-off.  ``backend``: "host" (native/scipy polyphase) or "device"
+    (one polyphase GEMM per chunk on ``device``, default the CUDA card).
+    One persistent reader serves the whole file: FLAC's sequential decoder
+    (FLAC has no byte index, so a reopen would decode from the start), or a
+    PCM16 WAV handle with readahead hints; both are closed when the
+    generator ends or is dropped.
     """
     if backend not in ("host", "device"):
         raise ValueError(f"unknown resample backend {backend!r}")
-    with wavio.RawReader(path) as reader:
-        inf = reader.info
+    inf = probe(path)
+    sr = inf.samplerate
+    total = resampled_length(inf.frames, sr, target_sr)
+    handle = None
+    if inf.subtype.startswith("FLAC"):
+        handle = flac.SequentialMonoReader(path)
+        read_native = handle.read
+    elif isinstance(inf, wavio.WavInfo) and inf.subtype == "PCM_16":
+        handle = wavio.RawReader(path)
 
         def read_native(start: int, frames: int) -> np.ndarray:
-            reader.will_need(start + frames, frames)  # prefetch the next range
-            return reader.read_mono_f32(start, frames)
+            handle.will_need(start + frames, frames)  # prefetch the next range
+            raw = handle.read_raw(start, frames).view("<i2")
+            out = native.pcm16_to_mono_f32(raw, inf.channels)
+            if out is not None:
+                return out
+            return to_mono(raw.reshape(-1, inf.channels).astype(np.float32) / 32768.0)
+    else:
+        def read_native(start: int, frames: int) -> np.ndarray:
+            return read_mono(path, start=start, frames=frames)[0]
 
-        total = resampled_length(inf.frames, inf.samplerate, target_sr)
-        yield from _stream_chunks_impl(read_native, inf.frames, inf.samplerate, total,
+    try:
+        yield from _stream_chunks_impl(read_native, inf.frames, sr, total,
                                        chunk_samples, target_sr, backend, device)
+    finally:
+        if handle is not None:
+            handle.close()
 
 
 def _stream_chunks_impl(

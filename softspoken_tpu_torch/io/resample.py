@@ -5,9 +5,10 @@ Kaiser-windowed-sinc design comparable to librosa's kaiser_best, standing in
 for the reference's soxr resampler, ``voice_activity.py:65-67``): the numpy
 and scipy helpers below are copies.  Two paths share the taps:
 
-  * ``resample`` — host, ``scipy.signal.resample_poly`` in float64.  The JAX
-    package prefers its C++ polyphase (``io/native.py``) and falls back to
-    the same scipy call; the two differ by float round-off (~1e-7).
+  * ``resample`` — host: the multithreaded C++ polyphase of
+    ``csrc/ssdsp.cpp`` (``io/native.py``) for 1-D input, else
+    ``scipy.signal.resample_poly`` in float64, as in the JAX package; the
+    two differ by float round-off (~1e-7).
   * ``polyphase_apply`` — the torch form of the traced block matmul, used
     by the fused engine and by ``DeviceChunkResampler``.
 """
@@ -23,6 +24,7 @@ import scipy.signal
 import torch
 
 from ..ops.mel import fp32_matmul
+from . import native
 
 # 32 zero-crossings per side at the lower rate, Kaiser beta 12.98 (~130 dB
 # stopband), 0.947 rolloff
@@ -50,12 +52,19 @@ def _ratio(orig_sr: int, target_sr: int):
 
 def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Resample 1-D (or [..., time]) float audio on the host; the output
-    length is ``ceil(n * target_sr / orig_sr)`` (librosa's convention)."""
+    length is ``ceil(n * target_sr / orig_sr)`` (librosa's convention).
+    1-D input goes through the native resampler when it is built, anything
+    else (or no compiler) through scipy; both use the same taps."""
     if orig_sr == target_sr:
         return np.asarray(x, dtype=np.float32)
     up, down = _ratio(orig_sr, target_sr)
+    taps = design_taps(up, down)
+    if np.ndim(x) == 1:
+        y = native.resample_f32(np.asarray(x, np.float32), up, down, taps)
+        if y is not None:
+            return y
     y = scipy.signal.resample_poly(np.asarray(x, dtype=np.float64), up, down,
-                                   axis=-1, window=design_taps(up, down))
+                                   axis=-1, window=taps)
     return y.astype(np.float32)
 
 

@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA kernels (nvcc → shared library → ctypes).
+"""Build and load the package's native code: the CUDA kernels (nvcc) and
+the host C++ libraries (g++), each a shared library loaded with ctypes.
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and is compiled on
 first use with
@@ -10,8 +11,17 @@ into the checkout's ``build/`` directory (listed in .gitignore), with
 ``-I csrc`` so that the sources can share headers.  The hash covers the
 source, every header in ``csrc/`` (any of them may be included) and the
 flags, so an edited source or header rebuilds and a stale library is never
-loaded.  Nothing here runs at import: the CPU tests import
-every module on a machine without nvcc.
+loaded.
+
+The host libraries ``csrc/ssdsp.cpp`` (resample, downmix) and
+``csrc/ssflac.cpp`` (the FLAC decoder) are built with
+
+    g++ -O3 -march=native -shared -fPIC -std=c++17 -o <lib> <src> -lpthread
+
+into the same directory, under a name that carries a hash of the source
+and the flags and a tag of the host's instruction set (``-march=native``
+code must not load on another CPU).  Nothing here runs at import: the CPU
+tests import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -29,6 +40,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "softspoken_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -84,3 +97,53 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(build(name))
         return lib
+
+
+def host_isa_tag() -> str:
+    """Short digest of the host CPU's instruction-set flags (``/proc/cpuinfo``,
+    else the machine name): part of a ``-march=native`` library's name."""
+    blob = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    blob = " ".join(sorted(line.split(":", 1)[1].split()))
+                    break
+    except OSError:
+        pass
+    return hashlib.sha256(blob.encode()).hexdigest()[:8]
+
+
+def host_lib_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cpp`` is built: the name carries a
+    hash of the source and the flags, and the host's ISA tag."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(os.path.join(CSRC, name + ".cpp"), "rb") as f:
+        h.update(b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}-{host_isa_tag()}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.cpp`` with g++ unless already built; returns the
+    library path.  Raises ``RuntimeError`` when g++ is missing or fails."""
+    out = host_lib_path(name)
+    if os.path.exists(out):
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: cannot build csrc/{name}.cpp")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        r = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp,
+                            os.path.join(CSRC, name + ".cpp"), "-lpthread"],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True, timeout=300)
+        build_logs[name] = r.stdout
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}.cpp:\n{r.stdout}")
+        os.replace(tmp, out)  # atomic: a reader never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out

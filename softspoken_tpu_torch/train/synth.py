@@ -20,17 +20,20 @@ corpus generation); training itself consumes pre-materialized clip pools on
 device (train/device_data.py).
 
 A copy of the JAX package's ``train/synth.py``: the same seed gives
-bit-identical pools (tests/test_torch_train_synth.py).  The labeled
-field-recording builder of the evaluation harness is not here yet; it comes
-with ``evaluate.py``.
+bit-identical pools (tests/test_torch_train_synth.py), and
+``synth_field_recording`` builds the labeled recordings that
+``train/evaluate.py`` scores.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 from scipy import signal
+
+from ..engine.regions import merge_intervals
+from ..io.resample import resample
 
 SR = 22050
 CLIP = SR * 3
@@ -416,3 +419,68 @@ def make_pools(
         kind = extra_kinds[int(rng.integers(len(extra_kinds)))]
         noise.append(synth_environment(rng, CLIP, kind))
     return speech.astype(np.float32), np.stack(noise).astype(np.float32)
+
+
+def synth_field_recording(
+    rng: np.random.Generator,
+    seconds: float,
+    sr: int = 32000,
+    speech_events: Tuple[int, int] = (2, 8),
+    snr_db: Tuple[float, float] = (0.0, 20.0),
+) -> Tuple[np.ndarray, List[Tuple[float, float]]]:
+    """A labeled outdoor recording at native rate ``sr``: an environment bed
+    with speech utterances inserted at known times.
+
+    Returns (audio float32 at ``sr``, [(start_s, end_s), ...] speech spans).
+    A copy of the JAX package's ``train/synth.py::synth_field_recording``
+    (bit-identical for a seed); ``train/evaluate.py`` scores detections
+    against its labels.
+    """
+    n22 = int(seconds * SR)
+    bed = synth_environment(rng, n22)
+    second_kind = ENVIRONMENT_KINDS[rng.integers(len(ENVIRONMENT_KINDS))]
+    bed = 0.7 * bed + 0.3 * synth_environment(rng, n22, second_kind)
+
+    audio22 = 0.15 * bed
+    # SNR reference is the environment bed ONLY: against the accumulating
+    # mix, a later event overlapping an earlier one would see an inflated
+    # "bed" RMS and come out louder than its labeled SNR
+    bed_ref = audio22.copy()
+    intervals: List[Tuple[float, float]] = []
+    n_events = int(rng.integers(speech_events[0], speech_events[1] + 1))
+    for _ in range(n_events):
+        dur = float(rng.uniform(1.0, 6.0))
+        # an event can't outlast a short recording (seconds < 6 crashed the
+        # broadcast before this clamp)
+        n = min(int(dur * SR), n22)
+        sp, act = synth_speech(rng, n)
+        if not act.any():
+            continue
+        at = int(rng.integers(0, max(1, n22 - n)))
+        snr = float(rng.uniform(*snr_db))
+        bed_rms = float(np.sqrt(np.mean(bed_ref[at : at + n] ** 2) + 1e-12))
+        sp_rms = float(np.sqrt(np.mean(sp[act] ** 2) + 1e-12))
+        gain = bed_rms * 10.0 ** (snr / 20.0) / sp_rms
+        audio22[at : at + n] += gain * sp
+        # activity runs → absolute intervals
+        d = np.diff(act.astype(np.int8))
+        starts = list(np.flatnonzero(d == 1) + 1)
+        ends = list(np.flatnonzero(d == -1) + 1)
+        if act[0]:
+            starts = [0] + starts
+        if act[-1]:
+            ends = ends + [n]
+        for s, e in zip(starts, ends):
+            intervals.append(((at + s) / SR, (at + e) / SR))
+
+    # merge label fragments closer than 0.3 s (sub-syllable gaps)
+    merged = merge_intervals(intervals, gap=0.3)
+
+    peak = np.abs(audio22).max()
+    if peak > 0.99:
+        audio22 = audio22 * (0.99 / peak)
+
+    if sr == SR:
+        return audio22.astype(np.float32), merged
+    native = resample(audio22.astype(np.float32), SR, sr)
+    return native.astype(np.float32), merged

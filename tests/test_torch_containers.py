@@ -1,0 +1,208 @@
+"""The port's PCM container readers (AIFF/AIFC, W64, CAF, AU, SPHERE) and
+WAV subtypes (RIFX, wide integers, G.711, MS-ADPCM, IMA-ADPCM) against the
+JAX package's: for every (format, subtype) the header probe, the samples of
+``read_any`` (whole file and a range), ``read_mono`` and ``load_audio`` are
+exactly equal.  Files are written with the JAX tests' own writers.  MP3,
+Ogg Vorbis and Opus are not ported and raise ``NotImplementedError`` naming
+the format."""
+
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from softspoken_tpu import Config as JConfig
+from softspoken_tpu import ckpt as jckpt
+from softspoken_tpu.engine import Detector as JDetector
+from softspoken_tpu.io import audio as jaudio
+from softspoken_tpu.io import wavio as jwavio
+from softspoken_tpu_torch import Config
+from softspoken_tpu_torch.ckpt import fixture_state_dict
+from softspoken_tpu_torch.engine import Detector
+from softspoken_tpu_torch.io import audio
+from test_adpcm import _write_ima, _write_ms, _write_ms_stereo
+from test_aiff import write_aiff
+from test_pcm_containers import write_caf, write_sphere, write_w64
+from test_wav_interop import _write_rifx_pcm16
+
+torch.set_num_threads(2)
+
+
+def _sig(frames, channels, seed=0):
+    """Float samples in (-1, 1) that survive a PCM16 round trip."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames) / 16000.0
+    x = np.stack([0.4 * np.sin(2 * np.pi * (440 + 110 * c) * t)
+                  + 0.05 * rng.standard_normal(frames) for c in range(channels)], 1)
+    return np.clip(x, -0.99, 0.99)
+
+
+def _i16(x):
+    return np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int64)
+
+
+def _wav_chunks(path, tag, ch, sr, bits, align, payload, riff=b"RIFF", en="<"):
+    with open(path, "wb") as f:
+        f.write(riff + struct.pack(en + "I", 36 + len(payload) + (len(payload) & 1))
+                + b"WAVE")
+        f.write(b"fmt " + struct.pack(en + "IHHIIHH", 16, tag, ch, sr, sr * align,
+                                      align, bits))
+        f.write(b"data" + struct.pack(en + "I", len(payload)) + payload)
+        if len(payload) & 1:
+            f.write(b"\x00")
+
+
+def _au(path, x, sr, encoding):
+    frames, ch = x.shape
+    if encoding == 3:
+        payload = _i16(x).astype(">i2").tobytes()
+    elif encoding == 6:
+        payload = x.astype(">f4").tobytes()
+    else:  # G.711 codes (1 mu-law, 27 A-law): any byte is a code
+        payload = np.random.default_rng(7).integers(0, 256, frames * ch,
+                                                    dtype=np.uint8).tobytes()
+    with open(path, "wb") as f:
+        f.write(b".snd" + struct.pack(">5I", 24, len(payload), encoding, sr, ch) + payload)
+
+
+def _wide(path, x, sr, nbytes):
+    """Signed PCM in ``nbytes``-byte little-endian containers (5-8 bytes)."""
+    frames, ch = x.shape
+    v = np.rint(x * 2.0 ** 31).astype(np.int64) << (8 * (nbytes - 4))
+    raw = v.astype("<i8").view(np.uint8).reshape(-1, 8)[:, 8 - nbytes:]
+    _wav_chunks(path, 1, ch, sr, 8 * nbytes, ch * nbytes, raw.tobytes())
+
+
+def _g711_wav(path, x, sr, tag):
+    frames, ch = x.shape
+    codes = np.random.default_rng(3).integers(0, 256, frames * ch, dtype=np.uint8)
+    _wav_chunks(path, tag, ch, sr, 8, ch, codes.tobytes())
+
+
+def _write(kind, path, sr=16000, frames=9000):
+    x1, x2 = _sig(frames, 1), _sig(frames, 2, seed=1)
+    fmt, sub = kind
+    if fmt == "aiff":
+        if sub == "PCM_16":
+            write_aiff(path, _i16(x2), sr)
+        elif sub == "PCM_24":
+            v = np.rint(x2 * 2 ** 23).astype(">i4").view(np.uint8).reshape(-1, 4)[:, 1:]
+            write_aiff(path, x2.shape, sr, payload=v.tobytes(), bits=24)
+        elif sub == "sowt":
+            write_aiff(path, x1.shape, sr, form=b"AIFC", comp=b"sowt",
+                       payload=_i16(x1).astype("<i2").tobytes())
+        elif sub == "fl32":
+            write_aiff(path, x2.shape, sr, form=b"AIFC", comp=b"fl32",
+                       payload=x2.astype(">f4").tobytes(), bits=32)
+    elif fmt == "w64":
+        write_w64(path, x1 if sub == "ULAW" else x2, sr,
+                  subtype=sub.removesuffix("-ext"), extensible=sub.endswith("-ext"))
+    elif fmt == "caf":
+        write_caf(path, x2, sr, subtype=sub.removesuffix("-le"),
+                  little=sub.endswith("-le"))
+    elif fmt == "au":
+        _au(path, x2, sr, {"PCM_16": 3, "FLOAT": 6, "ULAW": 1, "ALAW": 27}[sub])
+    elif fmt == "sphere":
+        write_sphere(path, x2 if sub != "ulaw" else x1, sr,
+                     coding="ulaw" if sub == "ulaw" else "pcm",
+                     byte_format="10" if sub == "pcm-be" else "01")
+    elif fmt == "rifx":
+        _write_rifx_pcm16(path, _i16(x2), sr, 2)
+    elif fmt == "wav":
+        if sub in ("PCM_40", "PCM_48", "PCM_64"):
+            _wide(path, x2, sr, int(sub[4:]) // 8)
+        elif sub in ("ULAW", "ALAW"):
+            _g711_wav(path, x2, sr, 7 if sub == "ULAW" else 6)
+        elif sub == "MS_ADPCM":
+            _write_ms(path, _i16(x1[:, 0]), sr=sr, spb=128)
+        elif sub == "MS_ADPCM-stereo":
+            _write_ms_stereo(path, _i16(x2), sr=sr, spb=64)
+        elif sub == "IMA_ADPCM":
+            _write_ima(path, _i16(x1[:, 0]), sr=sr)
+        elif sub == "IMA_ADPCM-stereo":
+            _write_ima(path, _i16(x2), sr=sr, ch=2)
+    return path
+
+
+CASES = [
+    ("aiff", "PCM_16"), ("aiff", "PCM_24"), ("aiff", "sowt"), ("aiff", "fl32"),
+    ("w64", "PCM_16"), ("w64", "FLOAT"), ("w64", "PCM_16-ext"), ("w64", "ULAW"),
+    ("caf", "PCM_16"), ("caf", "FLOAT-le"), ("caf", "ULAW"),
+    ("au", "PCM_16"), ("au", "FLOAT"), ("au", "ULAW"), ("au", "ALAW"),
+    ("sphere", "pcm"), ("sphere", "pcm-be"), ("sphere", "ulaw"),
+    ("rifx", "PCM_16"),
+    ("wav", "PCM_40"), ("wav", "PCM_48"), ("wav", "PCM_64"),
+    ("wav", "ULAW"), ("wav", "ALAW"),
+    ("wav", "MS_ADPCM"), ("wav", "MS_ADPCM-stereo"),
+    ("wav", "IMA_ADPCM"), ("wav", "IMA_ADPCM-stereo"),
+]
+_FIELDS = ("samplerate", "channels", "frames", "subtype", "bits_per_sample", "duration")
+
+
+@pytest.mark.parametrize("kind", CASES, ids=["-".join(k) for k in CASES])
+def test_reader_equals_jax(tmp_path, kind):
+    p = _write(kind, str(tmp_path / ("x." + kind[0])))
+    inf, jinf = audio.probe(p), jaudio.probe(p)
+    assert [getattr(inf, k) for k in _FIELDS] == [getattr(jinf, k) for k in _FIELDS]
+    assert inf.frames > 1000
+    for kw in (dict(always_2d=True), dict(start=777, frames=2345),
+               dict(start=inf.frames - 5, frames=100)):
+        got, sr = audio.read_any(p, **kw)
+        want, jsr = jaudio.read_any(p, **kw)
+        assert sr == jsr and got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(audio.read_mono(p)[0], jaudio.read_mono(p)[0])
+    got, sr = audio.load_audio(p)
+    want, jsr = jaudio.load_audio(p)
+    assert sr == jsr == 22050
+    np.testing.assert_array_equal(got, want)
+    assert audio.get_audio_data(p) == jaudio.get_audio_data(p)
+
+
+@pytest.mark.parametrize("fmt,head", [
+    ("MP3", b"ID3\x04\x00" + bytes(60)),
+    ("MP3", b"\xff\xfb\x90\x64" + bytes(60)),
+    ("Ogg Vorbis", b"OggS" + bytes(24) + b"\x01vorbis" + bytes(30)),
+    ("Ogg Opus", b"OggS" + bytes(24) + b"OpusHead" + bytes(30)),
+], ids=["mp3-id3", "mp3-frame", "vorbis", "opus"])
+def test_unported_formats_raise_naming_the_format(tmp_path, fmt, head):
+    p = str(tmp_path / "x.bin")
+    with open(p, "wb") as f:
+        f.write(head)
+    for call in (audio.probe, audio.read_any, audio.load_audio, audio.get_audio_data,
+                 audio.internal_length):
+        with pytest.raises(NotImplementedError, match=fmt):
+            call(p)
+
+
+def test_corrupt_container_is_a_decode_failure(tmp_path):
+    p = _write(("aiff", "PCM_16"), str(tmp_path / "x.aiff"))
+    with open(p, "r+b") as f:
+        f.truncate(30)
+    assert audio.load_audio(p) == (None, None) == jaudio.load_audio(p)
+
+
+@pytest.mark.parametrize("fmt", ["aiff", "w64"])
+def test_fused_detect_on_a_container_is_bit_equal_to_the_wav(tmp_path, fmt):
+    """A mono PCM16 AIFF / W64 rides the float32 wire, the WAV the int16
+    wire; the samples are the same floats, so the grids are bit-equal.  The
+    intervals equal the JAX package's fused ones."""
+    x = _sig(6 * 16000, 1, seed=4)
+    p = str(tmp_path / f"x.{fmt}")
+    if fmt == "aiff":
+        write_aiff(p, _i16(x), 16000)
+    else:
+        write_w64(p, x, 16000)
+    wp = str(tmp_path / "x.wav")
+    jwavio.write(wp, x, 16000, subtype="PCM_16")
+    eng = dict(precision="parity", device_batch=4, chunk_seconds=6.0, pipeline="fused")
+    det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
+                   device="cpu")
+    rc, rw = det.detect_file_streaming(p), det.detect_file_streaming(wp)
+    np.testing.assert_array_equal(rc.avg_values, rw.avg_values)
+    assert rc.intervals == rw.intervals
+    ref = JDetector(JConfig().with_engine(**eng),
+                    variables=jckpt.fixture_variables(seed=0)).detect_file_fused(p)
+    np.testing.assert_allclose(rc.avg_values, ref.avg_values, atol=1e-5)
+    assert rc.intervals == ref.intervals

@@ -250,12 +250,12 @@ def test_corrupt_and_unported_files(tmp_path):
     assert jload_audio(str(bad)) == (None, None)
     with pytest.raises(IOError):
         _pdet(**HOST).detect_file(str(bad))
-    flac = tmp_path / "x.flac"
-    flac.write_bytes(b"fLaC" + bytes(60))
-    with pytest.raises(NotImplementedError, match="FLAC"):
-        load_audio(str(flac))
-    with pytest.raises(NotImplementedError, match="FLAC"):
-        _pdet(**HOST).detect_file_streaming(str(flac))
+    mp3 = tmp_path / "x.mp3"
+    mp3.write_bytes(b"ID3" + bytes(60))
+    with pytest.raises(NotImplementedError, match="MP3"):
+        load_audio(str(mp3))
+    with pytest.raises(NotImplementedError, match="MP3"):
+        _pdet(**HOST).detect_file_streaming(str(mp3))
     ogg = tmp_path / "x.opus"
     ogg.write_bytes(b"OggS" + bytes(24) + b"OpusHead" + bytes(30))
     with pytest.raises(NotImplementedError, match="Opus"):
@@ -320,11 +320,11 @@ def test_runner_records_unreadable_files_and_goes_on(tmp_path):
     good = _wav(tmp_path, 22050, 0.5)
     bad = tmp_path / "bad.wav"
     bad.write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
-    flac = tmp_path / "x.flac"
-    flac.write_bytes(b"fLaC" + bytes(60))
+    ogg = tmp_path / "x.ogg"
+    ogg.write_bytes(b"OggS" + bytes(60))
     store = DetectionStore(str(tmp_path / "d.csv"))
-    report = DetectRunner(_pdet(**HOST), store).run([str(bad), str(flac), good])
+    report = DetectRunner(_pdet(**HOST), store).run([str(bad), str(ogg), good])
     assert report.files_done == 1
-    assert set(report.errors) == {str(bad), str(flac)}
+    assert set(report.errors) == {str(bad), str(ogg)}
     assert report.errors[str(bad)].startswith("OSError")
-    assert report.errors[str(flac)].startswith("NotImplementedError")
+    assert report.errors[str(ogg)].startswith("NotImplementedError: Ogg Vorbis")
