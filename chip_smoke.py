@@ -51,6 +51,15 @@ Phases:
        (``synth_field_recording``, seeds 0-7) in fast and parity mode:
        frame and event F1; fails if fast's mean frame F1 is more than 0.01
        below parity's or either is under 0.80
+  7. workflow (slice 7): the CLI in-process on a project of the 30-minute
+     WAV, two labeled 120 s fields and a 10 s stereo 24-bit 48 kHz FLAC:
+     ``project new``, ``detect`` (trained, fused, K1; a second run adds 0
+     rows), ``review list/add/erase/export``, ``silence`` (also as
+     ``python -m softspoken_tpu_torch``) and ``silence --fade-ms 20``; each
+     output held sample for sample to its input and erase rows, streaming to
+     in-memory, the labeled speech share silenced (floor 0.80), and the
+     mute's device twin on (2, 57,600,000) float32 bit-equal (zero) and
+     within 1e-6 (fade) to the numpy mute, timed; wall seconds per step
 Prints a JSON line of kernel records, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
@@ -1097,6 +1106,256 @@ def phase_trained(work: str, smi: str) -> None:
         raise AssertionError("the trained weights score below the gate on the card")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the review-and-silence workflow through the CLI, ending in silenced WAVs
+def _cli(argv, label: str, times: dict) -> tuple:
+    """``softspoken_tpu_torch.cli.main(argv)`` in-process: (exit code, stdout),
+    the wall seconds into ``times[label]``."""
+    import contextlib
+    import io
+
+    from softspoken_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    times[label] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}:\n{buf.getvalue()[-2000:]}")
+    return rc, buf.getvalue()
+
+
+def _json_tail(out: str) -> dict:
+    return json.loads(out[out.index("{"):])
+
+
+def _wav_chunks(path: str) -> dict:
+    """A RIFF/WAVE file's chunks by id."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise AssertionError(f"{path} is not a RIFF/WAVE file")
+    out, pos = {}, 12
+    while pos + 8 <= len(data):
+        size = int.from_bytes(data[pos + 4:pos + 8], "little")
+        out[data[pos:pos + 4]] = data[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _erase_mask(n: int, sr: int, intervals) -> np.ndarray:
+    """Samples inside ``[rint(st*sr), rint(et*sr))`` of any interval, clamped
+    (the reference's loop, silencer_ui.py:974-985)."""
+    mask = np.zeros(n, bool)
+    for st, et in intervals:
+        a = min(max(int(np.rint(st * sr)), 0), n)
+        b = min(max(int(np.rint(et * sr)), 0), n)
+        mask[a:b] = True
+    return mask
+
+
+def _silence_rates(runner, table, durations: dict) -> dict:
+    """Runs ``runner`` on ``table``; audio-s/wall-s per input file."""
+    marks = {}
+    runner.run(table, on_file_start=lambda f: marks.setdefault(f, time.perf_counter()),
+               on_file_done=lambda o: marks.setdefault(o, time.perf_counter()))
+    rates, outs = {}, iter(sorted((t, k) for k, t in marks.items()))
+    for (t0, src), (t1, _out) in zip(outs, outs):
+        rates[os.path.basename(src)] = durations[src] / (t1 - t0)
+    return rates
+
+
+def phase_workflow(work: str, wav: str, smi: str) -> None:
+    """The review-and-silence workflow through the port's CLI, in-process, on a
+    project of the 30-minute WAV, two labeled 120 s fields and a 10 s stereo
+    24-bit 48 kHz FLAC: ``project new`` → ``detect`` (on the card, the
+    trained weights, fused, K1) twice → ``review list/add/erase/export`` →
+    ``silence`` (hard zero; also as a ``python -m softspoken_tpu_torch``
+    subprocess) and ``silence --fade-ms 20``.  Every silenced file is held
+    sample for sample to its input and its erase rows; the streaming path to
+    the in-memory one; the device twin of the mute to the numpy mute."""
+    from softspoken_tpu_torch.io import probe, read_any, wavio
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.ops.mute import apply_mute, apply_mute_device
+    from softspoken_tpu_torch.project import read_csv
+    from softspoken_tpu_torch.project.table import to_number
+    from softspoken_tpu_torch.silence import SilenceRunner
+    from softspoken_tpu_torch.train.synth import synth_field_recording
+
+    wf = os.path.join(work, "workflow")
+    shutil.rmtree(wf, ignore_errors=True)
+    os.makedirs(wf)
+    t_files = time.perf_counter()
+    labeled = {}
+    for seed in (100, 101):
+        audio, truth = synth_field_recording(np.random.default_rng(seed), 120.0, sr=32000)
+        path = os.path.join(wf, f"labeled_{seed}.wav")
+        wavio.write(path, audio, 32000, subtype="PCM_16")
+        labeled[path] = truth
+    mono, _truth = synth_field_recording(np.random.default_rng(102), 10.0, sr=48000)
+    x24 = np.clip(np.rint(np.stack([mono, -0.5 * mono], 1) * 2 ** 23),
+                  -2 ** 23, 2 ** 23 - 1).astype(np.int64)
+    fp = os.path.join(wf, "stereo24.flac")
+    _flac_ref().write_flac(fp, x24, 48000, bits=24)
+    files = [wav, *labeled, fp]
+    durations = {f: probe(f).duration for f in files}
+    log(f"workflow: wrote 2 labeled 120 s WAVs and a 10 s stereo 24-bit 48 kHz FLAC in "
+        f"{time.perf_counter() - t_files:.1f} s")
+
+    times: dict = {}
+    base = ["--project-dir", os.path.join(wf, "projects")]
+    _cli(base + ["project", "new", "field7", *files], "project new", times)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    report = _json_tail(_cli(base + ["detect", "--project", "field7"], "detect", times)[1])
+    launches = dict(KERNEL_LAUNCHES)
+    if report["files_done"] != 4 or report["errors"] or not report["device"].startswith("cuda"):
+        raise AssertionError(f"workflow detect: {report}")
+    if not launches.get("frame_mel"):
+        raise AssertionError("workflow detect did not launch frame_mel")
+    again = _json_tail(_cli(base + ["detect", "--project", "field7"], "detect again", times)[1])
+    if again["rows_added"] != 0 or again["files_skipped"] != 4:
+        raise AssertionError(f"a second detect added rows: {again}")
+    out = _cli(base + ["review", "list"], "review list", times)[1]
+    n = json.loads(out.strip().splitlines()[-1])["total"]
+    _cli(base + ["review", "add", "--file", fp, "--start", "2.0", "--end", "3.5"],
+         "review add", times)
+    _cli(base + ["review", "erase", "--rows", *map(str, range(n + 1))], "review erase", times)
+    _cli(base + ["review", "export"], "review export", times)
+    proj_dir = os.path.join(wf, "projects")
+    exports = [os.path.join(proj_dir, "Audacity Outputs", "field7"),
+               os.path.join(proj_dir, "Kaleidoscope Outputs", "field7", "field7.csv"),
+               os.path.join(proj_dir, "Raven Outputs", "field7", "field7.txt")]
+    if not all(os.path.exists(p) for p in exports) or not os.listdir(exports[0]):
+        raise AssertionError("review export did not write the three exports")
+    dir_a, dir_b = os.path.join(wf, "silenced"), os.path.join(wf, "silenced_fade")
+    sil = _json_tail(_cli(base + ["silence", "--output-dir", dir_a], "silence", times)[1])
+    _cli(base + ["silence", "--fade-ms", "20", "--output-dir", dir_b], "silence fade", times)
+    dir_sub = os.path.join(wf, "silenced_subprocess")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "softspoken_tpu_torch", *base, "silence",
+                        "--output-dir", dir_sub], cwd=HERE, capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+    times["silence (python -m)"] = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"python -m softspoken_tpu_torch silence: {r.stderr[-2000:]}")
+    log(f"workflow detect: {n} reviewable rows of {report['rows_added']}, "
+        f"{report['audio_sec_per_wall_sec']:.2f} audio-s/wall-s, launches={json.dumps(launches)}")
+    log("workflow CLI wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" | {smi}")
+
+    # every file with an erase row has an output, every other file none
+    table = read_csv(os.path.join(proj_dir, "Softspoken Outputs", "field7", "field7_review.csv"))
+    erase = {}
+    for row in table.rows:
+        if to_number(row["erase"]) == 1:
+            full = os.path.join(row["file_path"], row["file_name"])
+            erase.setdefault(full, []).append((float(row["start_time"]),
+                                               float(row["end_time"])))
+    outputs = {f: os.path.join(dir_a, os.path.splitext(os.path.basename(f))[0]
+                               + "_silenced.wav") for f in files}
+    if sorted(sil["outputs"]) != sorted(outputs[f] for f in erase) or sil["errors"]:
+        raise AssertionError(f"silence outputs {sil['outputs']} for erased {sorted(erase)}")
+    for f in files:
+        if (f in erase) != os.path.exists(outputs[f]):
+            raise AssertionError(f"{f}: output present={os.path.exists(outputs[f])}, "
+                                 f"erase rows={len(erase.get(f, []))}")
+    if fp not in erase:
+        raise AssertionError("the FLAC has no erase row")
+
+    for f in erase:
+        x, sr = read_any(f, always_2d=True)
+        n_fr, ch = x.shape
+        name = os.path.basename(outputs[f])
+        inf = wavio.info(outputs[f])
+        if (inf.frames, inf.channels, inf.samplerate, inf.subtype) != (n_fr, ch, sr, "PCM_16"):
+            raise AssertionError(f"{name}: {inf} against ({n_fr}, {ch}, {sr})")
+        mask = _erase_mask(n_fr, sr, erase[f])
+        want = np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int16)
+        want[mask] = 0
+        got = wavio.read_raw(outputs[f])[0].view("<i2").reshape(n_fr, ch)
+        zeros_ok = bool(np.all(got[mask] == 0))
+        rest_ok = bool(np.array_equal(got[~mask], want[~mask]))
+        for d in (dir_sub,):
+            with open(os.path.join(d, name), "rb") as a, open(outputs[f], "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{name}: the subprocess wrote other bytes")
+        fade = int(round(0.02 * sr))
+        ref = os.path.join(wf, "fade_ref.wav")
+        wavio.write(ref, apply_mute(x.T, erase[f], sr, fade_samples=fade).T, sr,
+                    subtype="PCM_16")
+        with open(ref, "rb") as a, open(os.path.join(dir_b, name), "rb") as b:
+            fade_ok = a.read() == b.read()
+        log(f"workflow silence: {name} detections={len(erase[f])} frames={n_fr} channels={ch} "
+            f"sr={sr} muted={mask.mean():.4f} zeros_exact={zeros_ok} rest_bit_equal={rest_ok} "
+            f"fade_{fade}_equal={fade_ok}")
+        if not (zeros_ok and rest_ok and fade_ok):
+            raise AssertionError(f"{name}: the silenced samples are wrong")
+
+    # the streaming path writes the in-memory path's fmt chunk and samples
+    # (behind the JUNK chunk WavWriter reserves for RF64)
+    dir_m, dir_s = os.path.join(wf, "direct_memory"), os.path.join(wf, "direct_streaming")
+    mem = _silence_rates(SilenceRunner(dir_m), table, durations)
+    stream = _silence_rates(SilenceRunner(dir_s, stream_threshold_bytes=0), table, durations)
+    for f in erase:
+        name = os.path.basename(outputs[f])
+        with open(os.path.join(dir_m, name), "rb") as a, open(outputs[f], "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{name}: the direct in-memory run differs from the CLI's")
+        a, b = _wav_chunks(os.path.join(dir_s, name)), _wav_chunks(outputs[f])
+        if list(a) != [b"JUNK", b"fmt ", b"data"] or a[b"fmt "] != b[b"fmt "] \
+                or a[b"data"] != b[b"data"]:
+            raise AssertionError(f"{name}: streaming differs from in-memory")
+    log("workflow silence audio-s/wall-s per file, in memory: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(mem.items()))
+        + "; streaming: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(stream.items()))
+        + f"; streaming fmt+samples equal to in-memory | {smi}")
+
+    # how much of the labeled speech the workflow silenced
+    for path, truth in labeled.items():
+        x, sr = read_any(path)
+        speech = _erase_mask(len(x), sr, truth)
+        muted = _erase_mask(len(x), sr, erase.get(path, []))
+        s_share = float((muted & speech).sum() / max(1, speech.sum()))
+        n_share = float((muted & ~speech).sum() / max(1, (~speech).sum()))
+        log(f"workflow labeled {os.path.basename(path)}: {len(truth)} utterances, silenced "
+            f"speech share={s_share:.4f} (floor 0.80), non-speech share={n_share:.4f}")
+        if s_share < 0.80:
+            raise AssertionError(f"{path}: only {s_share:.3f} of the labeled speech silenced")
+
+    # the device twin on the card, on two channels of 30 minutes
+    x, sr = read_any(wav)
+    rng = np.random.default_rng(7)
+    audio = np.stack([x, rng.standard_normal(len(x), dtype=np.float32) * 0.1])
+    st = rng.uniform(-60.0, 1860.0, 50)
+    iv = list(erase.get(wav, [])) + list(zip(st, st + rng.uniform(-5.0, 30.0, 50)))
+    # unclipped round-half-even sample indices: the twin clips them itself
+    samples = np.rint(np.asarray(iv, np.float64) * sr).astype(np.int64)
+    dev = torch.from_numpy(audio).cuda()
+    s_dev, e_dev = torch.from_numpy(samples[:, 0]).cuda(), torch.from_numpy(samples[:, 1]).cuda()
+    for fade in (0, 640):
+        t0 = time.perf_counter()
+        want = apply_mute(audio, iv, sr, fade_samples=fade)
+        np_s = time.perf_counter() - t0
+        got = apply_mute_device(dev, s_dev, e_dev, fade).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        ms = cuda_time_ms(lambda: apply_mute_device(dev, s_dev, e_dev, fade),
+                          warmup=1, iters=3, reps=3)
+        ok = np.array_equal(got, want) if fade == 0 else err <= 1e-6
+        log(f"workflow mute twin {tuple(audio.shape)} float32, {len(iv)} intervals "
+            f"({len(erase.get(wav, []))} detected), fade={fade}: max_abs_err={err:.3e} "
+            f"({'bit-equal required' if fade == 0 else 'tol 1e-6'}) ok={ok}; card {ms:.3f} ms, "
+            f"numpy apply_mute {np_s * 1e3:.1f} ms | {smi}")
+        if not ok:
+            raise AssertionError(f"the device mute disagrees with apply_mute (fade={fade})")
+    del dev, s_dev, e_dev
+    shutil.rmtree(wf)
+    log(f"workflow phase: {time.perf_counter() - t_files:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
@@ -1139,6 +1398,7 @@ def main() -> int:
         phase_containers(work)
         phase_determinism(wav, chunk_device_ms, smi)
         phase_trained(work, smi)
+        phase_workflow(work, wav, smi)
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

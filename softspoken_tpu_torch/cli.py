@@ -1,15 +1,23 @@
-"""Command line: ``python -m softspoken_tpu_torch detect --files … --out …``
-and ``python -m softspoken_tpu_torch train --synthetic --steps N --out model.pth``.
+"""Command line: the detect-review-silence workflow and the trainer.
 
-Runs on the CUDA card by default (``--device cpu`` to run on the CPU), with
-the trained weights of ``root/models/spec_unet_2d/model_checkpoint.pth``
-unless ``--checkpoint`` or ``--random-init`` says otherwise.  Reads WAV
-(RF64, RIFX, G.711, ADPCM), FLAC, AIFF/AIFC, W64, CAF, AU and SPHERE; an
-MP3, Ogg Vorbis or Opus file is recorded as an error naming its format.
-The pipeline, mel kernel and resampler are chosen in the ``--config`` JSON
-(``{"engine": {"pipeline": "host", "mel_kernel": "pallas"}}``), as with the
-JAX package's CLI.  Prints a JSON report and exits nonzero when any file
-failed.
+    python -m softspoken_tpu_torch [--project-dir P] [--config c.json] <command>
+
+  project new|list|status|add-files|remove-files
+  detect        — voice detection over a project (or ad-hoc ``--files``)
+  review        — list/grade/keep/erase/add/delete detections, re-run the
+                  exporters, render a spectrogram PNG, export a segment WAV
+  silence       — mute the erased intervals and write *_silenced.wav
+  train         — ``train --synthetic --steps N --out model.pth``
+
+The JAX package's commands and flags.  ``detect`` runs on the CUDA card by
+default (``--device cpu`` to run on the CPU), with the trained weights of
+``root/models/spec_unet_2d/model_checkpoint.pth`` unless ``--checkpoint`` or
+``--random-init`` says otherwise.  It reads WAV (RF64, RIFX, G.711, ADPCM),
+FLAC, AIFF/AIFC, W64, CAF, AU and SPHERE; an MP3, Ogg Vorbis or Opus file is
+recorded as an error naming its format.  The pipeline, mel kernel and
+resampler are chosen in the ``--config`` JSON (``{"engine": {"pipeline":
+"host", "mel_kernel": "pallas"}}``).  ``detect`` and ``silence`` print a
+JSON report and exit nonzero when any file failed.
 """
 
 from __future__ import annotations
@@ -25,19 +33,91 @@ from .config import Config
 
 
 def _load_config(args) -> Config:
-    cfg = Config.from_file(args.config) if args.config else Config()
-    if args.precision:
+    cfg = Config.from_file(args.config) if getattr(args, "config", None) else Config()
+    if getattr(args, "project_dir", None):
+        cfg = cfg.with_paths(project_dir=args.project_dir)
+    if getattr(args, "precision", None):
         cfg = cfg.with_engine(precision=args.precision)
-    if args.device_batch:
+    if getattr(args, "device_batch", None):
         cfg = cfg.with_engine(device_batch=args.device_batch)
-    if args.threshold is not None:
+    if getattr(args, "threshold", None) is not None:
         cfg = cfg.with_engine(threshold=args.threshold)
-    if args.break_duration is not None:
+    if getattr(args, "break_duration", None) is not None:
         cfg = cfg.with_engine(break_duration=args.break_duration)
-    if args.strict_reference:
+    if getattr(args, "strict_reference", False):
         cfg = cfg.with_engine(skip_processed_files=False)
     return cfg
 
+
+def _manager(cfg: Config):
+    from .project import ProjectManager
+
+    return ProjectManager(cfg)
+
+
+def _active_project(pm, name: Optional[str]):
+    if name:
+        proj = pm.set_active_project(name)
+        if proj is None:
+            sys.exit(f"error: no project named '{name}'")
+        return proj
+    if not pm.activate_latest():
+        sys.exit("error: no projects exist; create one with `project new <name>`")
+    return pm.current_project
+
+
+# ---------------------------------------------------------------------------
+# project
+# ---------------------------------------------------------------------------
+
+def cmd_project(args) -> None:
+    cfg = _load_config(args)
+    pm = _manager(cfg)
+    # the optional positional `name` precedes `files`: argparse binds the
+    # FIRST audio file as the project name when the user means the default
+    # project.  If `name` is an existing path and not an existing project,
+    # treat it as a file.
+    if args.action in ("add-files", "remove-files") and args.name:
+        known = {p["name"] for p in pm.projects_data}
+        if args.name not in known and os.path.exists(args.name):
+            args.files = [args.name] + list(args.files)
+            args.name = None
+    if args.action == "new":
+        if not args.name:
+            raise SystemExit("error: `project new` requires a project name")
+        pm.add_project(args.name)
+        print(f"created project '{args.name}' under {pm.project_output_dir(args.name)}")
+        if args.files:
+            # `project new name f1.wav f2.wav` registers the trailing files
+            # like add-files
+            pm.set_active_project(args.name)
+            merged = pm.update_file_list([os.path.abspath(f) for f in args.files])
+            print(f"{len(merged)} file(s) registered")
+    elif args.action == "list":
+        for p in pm.projects_data:
+            print(f"{p['name']}\t(last accessed {p.get('last_accessed', '?')})")
+    elif args.action == "status":
+        proj = _active_project(pm, args.name)
+        print(json.dumps({"project": proj["name"], **pm.step_status()}, indent=2))
+    elif args.action == "add-files":
+        _active_project(pm, args.name)
+        files = [os.path.abspath(f) for f in args.files]
+        merged = pm.update_file_list(files)
+        print(f"{len(merged)} file(s) registered")
+    elif args.action == "remove-files":
+        _active_project(pm, args.name)
+        remaining = pm.remove_from_file_list([os.path.abspath(f) for f in args.files])
+        print(f"{len(remaining)} file(s) remain")
+    elif args.action == "merge-detections":
+        raise NotImplementedError(
+            "project merge-detections (parallel/distributed.py, the per-process "
+            "stores of detect --distributed) is not ported to softspoken_tpu_torch "
+            "yet (ROADMAP.md §1, multi-GPU)")
+
+
+# ---------------------------------------------------------------------------
+# detect
+# ---------------------------------------------------------------------------
 
 def cmd_detect(args) -> Dict:
     from .ckpt import fixture_state_dict
@@ -48,14 +128,21 @@ def cmd_detect(args) -> Dict:
     cfg = _load_config(args)
     sd = fixture_state_dict(seed=0) if args.random_init else None
     det = Detector(cfg, state_dict=sd, checkpoint_path=args.checkpoint, device=args.device)
-    store_path = args.out or "detections.csv"
+    if args.files:
+        files = [os.path.abspath(f) for f in args.files]
+        store_path = args.out or "detections.csv"
+    else:
+        pm = _manager(cfg)
+        proj = _active_project(pm, args.project)
+        files = pm.get_unprocessed_list()
+        store_path = proj["detections_file"]
     store = DetectionStore(store_path)
     cb = RunCallbacks(
         file_started=lambda f: print(f"→ {f}", flush=True),
         message=lambda m: print(f"   {m}", flush=True),
     )
     runner = DetectRunner(det, store, cfg, streaming=args.streaming or None)
-    report = runner.run([os.path.abspath(f) for f in args.files], cb)
+    report = runner.run(files, cb)
     out = {
         "files_done": report.files_done,
         "files_skipped": report.files_skipped,
@@ -65,6 +152,173 @@ def cmd_detect(args) -> Dict:
         "stage_seconds": report.timers,
         "detections_csv": store_path,
         "device": str(det.device),
+    }
+    print(json.dumps(out, indent=2), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# review
+# ---------------------------------------------------------------------------
+
+def cmd_review(args) -> None:
+    from .ui import ReviewSession, export_segment_wav, render_review_png
+
+    cfg = _load_config(args)
+    pm = _manager(cfg)
+    proj = _active_project(pm, args.project)
+    session = ReviewSession(proj, pm.projects_folder, cfg)
+
+    if args.action == "list":
+        for i, r in enumerate(session.rows):
+            # float-formatted strings ('1.0') from Excel/pandas round
+            # trips crash int(); coerce leniently like stats() does
+            try:
+                erased = float(r.get("erase", 0) or 0) == 1.0
+            except (TypeError, ValueError):
+                erased = False
+            mark = "E" if erased else (
+                "K" if str(r.get("review_datetime", "")).strip() else "."
+            )
+            print(
+                f"{i:5d} [{mark}] #{r['ID']} {r['file_name']} "
+                f"{float(r['start_time']):9.3f}–{float(r['end_time']):9.3f} "
+                f"{r.get('user_comment', '')}"
+            )
+        print(json.dumps(session.stats()))
+    elif args.action in ("keep", "erase"):
+        for i in args.rows:
+            getattr(session, args.action)(index=i, persist=False)
+        session.save()
+        print(json.dumps(session.stats()))
+    elif args.action == "add":
+        if not args.file or args.start is None or args.end is None:
+            raise SystemExit(
+                "review add: --file, --start and --end are all required"
+            )
+        pos = session.add(
+            os.path.dirname(os.path.abspath(args.file)),
+            os.path.basename(args.file),
+            args.start,
+            args.end,
+        )
+        print(f"inserted at row {pos}" if pos is not None else "rejected (end ≤ start)")
+    elif args.action == "delete":
+        session.delete(args.rows)
+        print(json.dumps(session.stats()))
+    elif args.action == "export":
+        session.save()  # persists review.csv + all three exporters
+        print(f"review saved + exports re-run under {pm.projects_folder}")
+    elif args.action == "grade":
+        _grade_loop(session, args)
+    elif args.action == "render":
+        r = session.rows[args.row]
+        full = os.path.join(r["file_path"], r["file_name"])
+        others = [
+            (float(q["start_time"]), float(q["end_time"]))
+            for q in session.rows if q["file_name"] == r["file_name"]
+        ]
+        png = render_review_png(
+            full, float(r["start_time"]), float(r["end_time"]), others,
+            zoom_level=args.zoom, config=cfg,
+        )
+        out = args.out or f"detection_{int(r['ID'])}.png"
+        with open(out, "wb") as f:
+            f.write(png)
+        print(out)
+    elif args.action == "segment":
+        r = session.rows[args.row]
+        full = os.path.join(r["file_path"], r["file_name"])
+        out = export_segment_wav(
+            full, (float(r["start_time"]), float(r["end_time"])), args.out, cfg
+        )
+        print(out)
+
+
+def _grade_loop(session, args) -> None:
+    """Interactive terminal grading: the review screen's Keep/Erase flow
+    (review_detections.py:677-717) over stdin.  [k]eep [e]rase [s]kip
+    [p]lay [r]ender [b]ack [q]uit."""
+    from .ui import export_segment_wav, play_segment, render_review_png
+
+    while session.current() is not None:
+        row = session.current()
+        total = len(session)
+        reviewed = "✓" if str(row.get("review_datetime", "")).strip() else " "
+        print(
+            f"\n[{session.current_index + 1}/{total}]{reviewed} #{row['ID']} "
+            f"{row['file_name']}  {float(row['start_time']):.3f}–"
+            f"{float(row['end_time']):.3f}s  erase={row['erase']}"
+        )
+        try:
+            cmd = input("  [k]eep [e]rase [s]kip [p]lay [r]ender [b]ack [q]uit > ").strip().lower()
+        except EOFError:
+            break
+        full = os.path.join(row["file_path"], row["file_name"])
+        idx_before = session.current_index
+        if cmd == "k":
+            session.keep()
+        elif cmd == "e":
+            session.erase()
+        elif cmd == "s":
+            session.next()
+        elif cmd == "b":
+            session.prev()
+        elif cmd == "p":
+            seg = (max(0.0, float(row["start_time"])), float(row["end_time"]))
+            # session.cfg carries the CLI --config, as `review render/segment`
+            if not play_segment(full, seg, config=session.cfg):
+                out = export_segment_wav(full, seg, config=session.cfg)
+                print(f"  (no audio device; segment written to {out})")
+        elif cmd == "r":
+            png = render_review_png(
+                full, float(row["start_time"]), float(row["end_time"]),
+                zoom_level=args.zoom, config=session.cfg,
+            )
+            out = f"detection_{int(row['ID'])}.png"
+            with open(out, "wb") as f:
+                f.write(png)
+            print(f"  rendered {out}")
+        elif cmd == "q":
+            break
+        # done only when the LAST row itself was just graded/skipped
+        # (advancing TO the last row must still display it)
+        if idx_before >= total - 1 and cmd in ("k", "e", "s"):
+            print("  (end of detections)")
+            break
+    print(json.dumps(session.stats()))
+
+
+# ---------------------------------------------------------------------------
+# silence
+# ---------------------------------------------------------------------------
+
+def cmd_silence(args) -> Dict:
+    from .project import read_csv
+    from .silence import SilenceRunner, write_status_file
+
+    cfg = _load_config(args)
+    pm = _manager(cfg)
+    proj = _active_project(pm, args.project)
+    review_path = proj["review_file"]
+    if not os.path.exists(review_path):
+        sys.exit(f"error: no review file at {review_path}; run review first")
+    table = read_csv(review_path)  # pandas' default NA handling, as the JAX CLI
+
+    runner = SilenceRunner(args.output_dir, fade_ms=args.fade_ms, subtype=args.subtype)
+    report = runner.run(
+        table,
+        on_file_start=lambda f: print(f"→ {f}", flush=True),
+        on_file_done=lambda f: print(f"   wrote {f}", flush=True),
+    )
+    if not report.stopped:
+        write_status_file(proj, pm.project_output_dir(proj["name"]))
+        pm.save_current_project()
+    out = {
+        "files_done": report.files_done,
+        "files_failed": report.files_failed,
+        "outputs": report.outputs,
+        "errors": report.errors,
     }
     print(json.dumps(out, indent=2), flush=True)
     return out
@@ -167,13 +421,28 @@ def _add_train_parser(sub) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="softspoken_tpu_torch", description=__doc__)
+    p = argparse.ArgumentParser(prog="softspoken_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", help="JSON config file overriding defaults")
+    p.add_argument("--project-dir", help="projects root (default ./projects)")
     sub = p.add_subparsers(dest="command", required=True)
-    d = sub.add_parser("detect", help="run voice detection on audio files")
-    d.add_argument("--config", help="JSON config file overriding defaults")
-    d.add_argument("--files", nargs="+", required=True,
-                   help="audio files (WAV, FLAC, AIFF, W64, CAF, AU, SPHERE)")
-    d.add_argument("--out", help="detections CSV (default detections.csv)")
+
+    pp = sub.add_parser("project", help="manage projects")
+    pp.add_argument("action", choices=["new", "list", "status", "add-files",
+                                       "remove-files", "merge-detections"])
+    pp.add_argument("name", nargs="?", help="project name")
+    pp.add_argument("files", nargs="*", help="audio files (new/add-files/remove-files)")
+    pp.set_defaults(func=cmd_project)
+
+    d = sub.add_parser("detect", help="run voice detection")
+    # also accepted after the command; the global --config otherwise
+    d.add_argument("--config", default=argparse.SUPPRESS,
+                   help="JSON config file overriding defaults")
+    d.add_argument("--project", help="project name (default: latest)")
+    d.add_argument("--files", nargs="*",
+                   help="ad-hoc audio files instead of a project (WAV, FLAC, AIFF, "
+                        "W64, CAF, AU, SPHERE)")
+    d.add_argument("--out", help="detections CSV for ad-hoc mode (default detections.csv)")
     g = d.add_mutually_exclusive_group()
     g.add_argument("--checkpoint", help="reference .pth checkpoint (default: the "
                    "trained root/models/spec_unet_2d/model_checkpoint.pth)")
@@ -189,6 +458,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force bounded-memory streaming decode")
     d.add_argument("--device", help="torch device (default: the CUDA card)")
     d.set_defaults(func=cmd_detect)
+
+    pr = sub.add_parser("review", help="review detections")
+    pr.add_argument("action", choices=["list", "grade", "keep", "erase", "add",
+                                        "delete", "export", "render", "segment"])
+    pr.add_argument("--project")
+    pr.add_argument("--rows", type=int, nargs="*", default=[], help="row indexes")
+    pr.add_argument("--row", type=int, default=0, help="row index (render/segment)")
+    pr.add_argument("--file", help="audio file (add)")
+    pr.add_argument("--start", type=float)
+    pr.add_argument("--end", type=float)
+    pr.add_argument("--zoom", type=float, default=1.0, help="seconds per inch")
+    pr.add_argument("--out", help="output path (render/segment)")
+    pr.set_defaults(func=cmd_review)
+
+    ps = sub.add_parser("silence", help="zero flagged intervals, write *_silenced.wav")
+    ps.add_argument("--project")
+    ps.add_argument("--output-dir", required=True)
+    ps.add_argument("--fade-ms", type=float, default=0.0,
+                    help="crossfade ramp (0 = reference hard zero)")
+    ps.add_argument("--subtype", default="PCM_16",
+                    help="output sample format (PCM_16 parity default)")
+    ps.set_defaults(func=cmd_silence)
+
     _add_train_parser(sub)
     return p
 
@@ -196,7 +488,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     out = args.func(args)
-    return 1 if out.get("errors") else 0
+    return 1 if isinstance(out, dict) and out.get("errors") else 0
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Self-contained RIFF/WAVE codec (numpy only).
 
-A copy of the JAX package's readers in ``io/wavio.py``, without the pieces
-of later slices (``top16_from_raw``, the lossy mu-law wire's, and
-``WavWriter``, the silencer's); ``write`` writes PCM_16 and FLOAT only.
+A copy of the JAX package's ``io/wavio.py`` (readers, ``write`` in every
+subtype and the streaming ``WavWriter`` that promotes to RF64), without
+``top16_from_raw``, the lossy mu-law wire's piece of a later slice.
 It stands in for the reference's ``soundfile``/``librosa`` reads
 (``voice_activity.py:23-143``).
 
@@ -607,29 +607,170 @@ def read(
     return data, inf.samplerate
 
 
+_ENC = {
+    "PCM_U8": ("u8", WAVE_FORMAT_PCM, 8),
+    "PCM_16": ("<i2", WAVE_FORMAT_PCM, 16),
+    "PCM_24": (None, WAVE_FORMAT_PCM, 24),
+    "PCM_32": ("<i4", WAVE_FORMAT_PCM, 32),
+    "FLOAT": ("<f4", WAVE_FORMAT_IEEE_FLOAT, 32),
+    "DOUBLE": ("<f8", WAVE_FORMAT_IEEE_FLOAT, 64),
+}
+
+
+def _encode(data: np.ndarray, subtype: str) -> bytes:
+    if subtype == "PCM_U8":
+        q = np.clip(np.rint(data * 128.0) + 128.0, 0, 255).astype(np.uint8)
+        return q.tobytes()
+    if subtype == "PCM_16":
+        q = np.clip(np.rint(data * 32768.0), -32768, 32767).astype("<i2")
+        return q.tobytes()
+    if subtype == "PCM_24":
+        q = np.clip(np.rint(data * 8388608.0), -8388608, 8388607).astype(np.int64)
+        q = (q & 0xFFFFFF).astype(np.uint32)
+        out = np.empty(q.shape + (3,), dtype=np.uint8)
+        out[..., 0] = q & 0xFF
+        out[..., 1] = (q >> 8) & 0xFF
+        out[..., 2] = (q >> 16) & 0xFF
+        return out.tobytes()
+    if subtype == "PCM_32":
+        q = np.clip(np.rint(data * 2147483648.0), -2147483648, 2147483647).astype("<i4")
+        return q.tobytes()
+    if subtype == "FLOAT":
+        return data.astype("<f4").tobytes()
+    if subtype == "DOUBLE":
+        return data.astype("<f8").tobytes()
+    raise WavFormatError(f"unsupported subtype {subtype}")
+
+
 def write(path: str, data: np.ndarray, samplerate: int, subtype: str = "PCM_16") -> None:
-    """Write float samples ((frames,) or (frames, channels)) as PCM_16 or
-    FLOAT WAV — enough for the port's tests and its smoke run."""
+    """Write float samples to a WAV file.
+
+    ``data`` is ``(frames,)`` or ``(frames, channels)`` float; the default
+    PCM_16 subtype matches what ``soundfile.write`` produced for the
+    reference's silenced output (``silencer_ui.py:998``).
+    """
     data = np.asarray(data)
     if data.ndim == 1:
         data = data[:, None]
-    channels = data.shape[1]
-    if subtype == "PCM_16":
-        payload = np.clip(np.rint(data * 32768.0), -32768, 32767).astype("<i2").tobytes()
-        tag, bits = WAVE_FORMAT_PCM, 16
-    elif subtype == "FLOAT":
-        payload = data.astype("<f4").tobytes()
-        tag, bits = WAVE_FORMAT_IEEE_FLOAT, 32
-    else:
-        raise ValueError(f"writing {subtype} WAV is not supported")
-    align = channels * bits // 8
+    frames, channels = data.shape
+    _, fmt_tag, bits = _ENC[subtype]
+    payload = _encode(data, subtype)
+    byte_rate = samplerate * channels * bits // 8
+    block_align = channels * bits // 8
     with open(path, "wb") as f:
-        f.write(b"RIFF" + struct.pack("<I", 36 + len(payload) + (len(payload) & 1)) + b"WAVE")
-        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, tag, channels, samplerate,
-                                      samplerate * align, align, bits))
-        f.write(b"data" + struct.pack("<I", len(payload)) + payload)
+        f.write(b"RIFF")
+        # RIFF size counts the odd-payload pad byte written below (matches
+        # WavWriter.close); omitting it truncates the final chunk for
+        # strict parsers
+        f.write(struct.pack("<I", 36 + len(payload) + (len(payload) & 1)))
+        f.write(b"WAVE")
+        f.write(b"fmt ")
+        f.write(
+            struct.pack(
+                "<IHHIIHH", 16, fmt_tag, channels, samplerate, byte_rate, block_align, bits
+            )
+        )
+        f.write(b"data")
+        f.write(struct.pack("<I", len(payload)))
+        f.write(payload)
         if len(payload) & 1:
             f.write(b"\x00")
+
+
+class WavWriter:
+    """Incremental WAV writer for streaming write-back of silenced audio.
+
+    Lets the silencer stream multi-GB files chunk-by-chunk instead of holding
+    the whole waveform in RAM (the reference loads entire files:
+    ``silencer_ui.py:959``).
+
+    **Auto-promotes to RF64** when the payload outgrows the 32-bit RIFF size
+    fields: the header always reserves a 28-byte ``JUNK`` chunk right after
+    the RIFF header (the libsndfile/EBU-3306 technique); on close it either
+    stays ``JUNK`` (plain WAV, readers skip it) or is rewritten in place to
+    the ``ds64`` chunk of an ``RF64`` file — so silencing a >4 GiB recording
+    yields a valid large-file WAV instead of a struct.error.
+    """
+
+    # byte layout: RIFF(12) + JUNK/ds64(8+28) + fmt(8+16) + data hdr(8)
+    _DS64_OFFSET = 12
+    _DATA_SIZE_OFFSET = 12 + 36 + 24 + 4  # → the data chunk's 32-bit size field
+    HEADER_BYTES = 12 + 36 + 24 + 8
+
+    # promote a touch below 2^32 so riff_size (payload + header) also fits
+    _RF64_THRESHOLD = 0xFFFFFFFF - 4096
+
+    def __init__(self, path: str, samplerate: int, channels: int, subtype: str = "PCM_16"):
+        self.path = path
+        self.samplerate = samplerate
+        self.channels = channels
+        self.subtype = subtype
+        self._f = open(path, "wb")
+        self._payload_bytes = 0
+        _, fmt_tag, bits = _ENC[subtype]
+        self._block_align = channels * bits // 8
+        # placeholder sizes; fixed up on close
+        self._f.write(b"RIFF" + struct.pack("<I", 0) + b"WAVE")
+        self._f.write(b"JUNK" + struct.pack("<I", 28) + b"\x00" * 28)
+        byte_rate = samplerate * channels * bits // 8
+        self._f.write(
+            b"fmt "
+            + struct.pack(
+                "<IHHIIHH", 16, fmt_tag, channels, samplerate, byte_rate,
+                self._block_align, bits
+            )
+        )
+        self._f.write(b"data" + struct.pack("<I", 0))
+        assert self._f.tell() == self.HEADER_BYTES
+
+    def write(self, data: np.ndarray) -> None:
+        data = np.asarray(data)
+        if data.ndim == 1:
+            data = data[:, None]
+        if data.shape[1] != self.channels:  # not assert: corrupt WAV under -O
+            raise ValueError(
+                f"write() got {data.shape[1]} channel(s), writer has {self.channels}")
+        payload = _encode(data, self.subtype)
+        self._f.write(payload)
+        self._payload_bytes += len(payload)
+
+    def close(self) -> None:
+        if self._f.closed:
+            return
+        if self._payload_bytes & 1:
+            self._f.write(b"\x00")
+        riff_size = self.HEADER_BYTES - 8 + self._payload_bytes + (self._payload_bytes & 1)
+        if self._payload_bytes < self._RF64_THRESHOLD:
+            self._f.seek(4)
+            self._f.write(struct.pack("<I", riff_size))
+            self._f.seek(self._DATA_SIZE_OFFSET)
+            self._f.write(struct.pack("<I", self._payload_bytes))
+        else:
+            # RF64 promotion: 32-bit size fields become 0xFFFFFFFF sentinels,
+            # JUNK becomes ds64 carrying the real 64-bit sizes (EBU Tech 3306)
+            self._f.seek(0)
+            self._f.write(b"RF64" + struct.pack("<I", 0xFFFFFFFF))
+            self._f.seek(self._DS64_OFFSET)
+            self._f.write(
+                b"ds64"
+                + struct.pack(
+                    "<IQQQI",
+                    28,
+                    riff_size,
+                    self._payload_bytes,
+                    self._payload_bytes // self._block_align,
+                    0,  # no per-chunk size table
+                )
+            )
+            self._f.seek(self._DATA_SIZE_OFFSET)
+            self._f.write(struct.pack("<I", 0xFFFFFFFF))
+        self._f.close()
+
+    def __enter__(self) -> "WavWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class RawReader:

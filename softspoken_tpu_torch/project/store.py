@@ -8,7 +8,9 @@ Same columns and row format as the JAX package's pandas-backed
 
 rewritten after every completed file (worker.py:127-128), so a stopped run
 resumes at file granularity.  A ``.processed`` sidecar records finished files
-whether or not they had detections.
+whether or not they had detections.  ``backfill_ids`` and
+``empty_detections_table`` are the JAX package's ``backfill_ids`` and
+``empty_detections_frame`` over a ``Table`` (``project/table.py``).
 """
 
 from __future__ import annotations
@@ -17,10 +19,37 @@ import csv
 import os
 from typing import Dict, Iterable, List, Set, Tuple
 
+from .table import Table, is_na, to_numeric
+
 COLUMNS = [
     "ID", "file_path", "file_name", "start_time", "end_time",
     "erase", "user_comment", "review_datetime",
 ]
+
+
+def empty_detections_table() -> Table:
+    return Table(COLUMNS)
+
+
+def backfill_ids(table: Table) -> Table:
+    """Insert/repair the ID column (silencer_ui.py:797-807): a missing column
+    becomes 1..n in front; IDs that are not numbers get max present ID + 1,
+    + 2, ... in row order; every ID becomes an int (truncated)."""
+    if "ID" not in table.columns:
+        table.set_column("ID", list(range(1, len(table) + 1)), pos=0)
+        return table
+    ids = to_numeric(table.column("ID"))
+    present = [v for v in ids if not is_na(v)]
+    nxt = (int(max(present)) if present else 0) + 1
+    out = []
+    for v in ids:
+        if is_na(v):
+            out.append(nxt)
+            nxt += 1
+        else:
+            out.append(int(v))
+    table.set_column("ID", out)
+    return table
 
 
 class DetectionStore:
@@ -35,16 +64,17 @@ class DetectionStore:
                     self.rows.append({c: (r.get(c) or "") for c in COLUMNS})
             self._backfill_ids()
 
+    # reference constructor took the whole project settings dict
+    # (silencer_ui.py:776-793); this classmethod keeps that call shape.
+    @classmethod
+    def for_project(cls, project: Dict) -> "DetectionStore":
+        return cls(project["detections_file"])
+
     def _backfill_ids(self) -> None:
         """Give rows without a numeric ID the next free ones (silencer_ui.py:797-807)."""
-        ids = [_int_or_none(r["ID"]) for r in self.rows]
-        nxt = max([i for i in ids if i is not None], default=0) + 1
+        ids = backfill_ids(Table(COLUMNS, self.rows)).column("ID")
         for r, i in zip(self.rows, ids):
-            if i is None:
-                r["ID"] = str(nxt)
-                nxt += 1
-            else:
-                r["ID"] = str(i)
+            r["ID"] = str(i)
             if r["erase"] == "":
                 r["erase"] = "0"
 
@@ -94,8 +124,6 @@ class DetectionStore:
         os.replace(tmp, self.path)
 
 
-def _int_or_none(v: str):
-    try:
-        return int(float(v))
-    except (TypeError, ValueError):
-        return None
+
+# Backwards-shaped alias matching the reference class name
+DetectionProject = DetectionStore

@@ -224,3 +224,24 @@ def test_pth_trained_on_the_card_runs_in_detector(tmp_path):
     assert det.device.type == "cuda" and det.epoch == 2
     res = det.detect_file_streaming(wav)
     assert res.num_windows > 0 and np.isfinite(res.avg_values).all()
+
+
+@pytest.mark.parametrize("fade", [0, 640])
+def test_mute_twin_on_the_card_matches_numpy(fade):
+    """``apply_mute_device`` on the card against the numpy ``apply_mute``:
+    zero mode bit-equal, fade within 1e-6 (chip_smoke's tolerances), with
+    overlapping, degenerate and out-of-range intervals."""
+    _need_card()
+    from softspoken_tpu_torch.ops import mute
+
+    sr = 16000
+    iv = [(0.1, 0.4), (0.3, 0.6), (0.9, 0.2), (0.5, 0.5), (-1.0, 0.1), (2.4, 99.0)]
+    x = np.random.default_rng(0).normal(0, 0.3, (2, 40000)).astype(np.float32)
+    samples = np.rint(np.asarray(iv, np.float64) * sr).astype(np.int64)
+    out = mute.apply_mute_device(x, samples[:, 0], samples[:, 1], fade)
+    assert out.is_cuda
+    got, want = out.cpu().numpy(), mute.apply_mute(x, iv, sr, fade_samples=fade)
+    if fade == 0:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)

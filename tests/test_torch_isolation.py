@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+pandas, nor matplotlib outside the one function that draws a PNG (the card's
+machine has neither), and its entry points run on the card unless the caller
+asks for the CPU."""
 
 import ast
 import os
@@ -23,14 +25,17 @@ def _modules():
     return sorted(out)
 
 
+FORBIDDEN = ("jax", "softspoken_tpu", "pandas", "matplotlib")
+
+
 def test_importing_every_module_loads_no_jax():
-    """In a fresh interpreter (conftest already imported jax here)."""
+    """In a fresh interpreter (conftest already imported jax here): no jax,
+    no JAX package, no pandas, no matplotlib."""
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'softspoken_tpu' or m.startswith('softspoken_tpu.')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -55,6 +60,38 @@ def test_no_jax_or_reference_imports_in_source(mod):
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas"), n
             assert top != "softspoken_tpu", n
+
+
+def _matplotlib_importers(tree):
+    """Names of the functions that import matplotlib (None: module level)."""
+    out = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            f = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module or ""]
+            if any(n.split(".")[0] == "matplotlib" for n in names):
+                out.append(func)
+            visit(child, f)
+
+    visit(tree, None)
+    return out
+
+
+@pytest.mark.parametrize("mod", _modules() + ["chip_smoke"])
+def test_matplotlib_only_inside_render_review_png(mod):
+    path = os.path.join(ROOT, *mod.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *mod.split("."), "__init__.py")
+    found = _matplotlib_importers(ast.parse(open(path, encoding="utf-8").read()))
+    if mod == "softspoken_tpu_torch.ui.spectrogram":
+        assert found == ["render_review_png", "render_review_png"]
+    else:
+        assert found == [], found
 
 
 def test_detector_defaults_to_the_card():
