@@ -60,7 +60,23 @@ Phases:
      in-memory, the labeled speech share silenced (floor 0.80), and the
      mute's device twin on (2, 57,600,000) float32 bit-equal (zero) and
      within 1e-6 (fade) to the numpy mute, timed; wall seconds per step
-Prints a JSON line of kernel records, the nvidia-smi line, and as the last
+  8. eval (slice 8): (a) four conditions of scripts/quality_grid.py (v1
+     clean, v2 clean, v1 mulaw, v2 reverb08; seeds 7000, 7000, 7007, 7014),
+     8 x 120 s at 32 kHz each from ``make_eval_set`` (synthesized in four
+     worker processes while the card detects), detected by the trained
+     weights in fast mode with mel_precision "highest" through
+     ``detect_file_streaming`` (fused, K1) and scored at the parity point,
+     without and with the music filter at 0.85: frame and event F1 within
+     0.01 and 0.03 of the JAX package's CPU result (``EVAL_REFERENCE``),
+     with the taxonomy, regions dropped, synth and detect seconds and K1
+     launches; docs/QUALITY_r05.json's TPU values printed beside them;
+     (b) the CLI in process: ``eval --make-synthetic`` 8 x 120 s (frame F1
+     >= 0.80, K1 launched), a v2 ``fading`` eval with ``--music-filter
+     --exit-threshold 0.05 --grid-smooth 3``, and ``detect`` with the same
+     flags writing its CSV; wall seconds of each.  Phase 1 also reports
+     which codec libraries of the JAX package's MP3/Ogg/Opus readers load.
+Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
+over phase 8), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
 """
@@ -180,6 +196,25 @@ def cuda_time_ms(fn, warmup=3, iters=10, reps=5) -> float:
     return float(np.median(out))
 
 
+# the system libraries the JAX package's MP3, Ogg Vorbis and Opus readers bind
+CODEC_LIBRARIES = ("libmpg123.so.0", "libmp3lame.so.0", "libogg.so.0", "libvorbis.so.0",
+                   "libvorbisfile.so.3", "libvorbisenc.so.2", "libopus.so.0")
+
+
+def codec_libraries() -> str:
+    """Which of ``CODEC_LIBRARIES`` load with ctypes (a report, not a check)."""
+    import ctypes
+
+    out = []
+    for name in CODEC_LIBRARIES:
+        try:
+            ctypes.CDLL(name)
+            out.append(f"{name}=loads")
+        except OSError:
+            out.append(f"{name}=absent")
+    return " ".join(out)
+
+
 # ---------------------------------------------------------------------------
 def phase_toolchain() -> dict:
     """Builds the kernels; returns {kernel: tensor-core instructions in its
@@ -193,6 +228,7 @@ def phase_toolchain() -> dict:
         log("triton:", triton.__version__)
     except ImportError:
         log("triton: absent")
+    log("codec libraries:", codec_libraries())
     log("torch", torch.__version__, "cuda", torch.version.cuda)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as ex:  # one nvcc per source
@@ -1356,6 +1392,192 @@ def phase_workflow(work: str, wav: str, smi: str) -> None:
     log(f"workflow phase: {time.perf_counter() - t_files:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the eval harness, the two generators, the degradations and the
+# music post-filter
+# scripts/quality_grid.py's conditions (its seed is 7000 + the condition's index there)
+EVAL_CONDITIONS = (("v1_clean", "v1", 7000, None), ("v2_clean", "v2", 7000, None),
+                   ("v1_mulaw", "v1", 7007, ["mulaw"]),
+                   ("v2_reverb08", "v2", 7014, ["reverb08"]))
+# The JAX package's own result on those conditions, the gate's reference:
+# tests/jax_eval_reference.py on the CPU at commit b959b9b, 8 x 120 s at
+# 32 kHz, trained checkpoint, fast mode with mel_precision="highest",
+# detect_file_streaming (its host pipeline on the CPU), parity operating
+# point.  (frame F1, event F1) without and with the music filter at 0.85.
+EVAL_REFERENCE = {
+    "v1_clean": ((0.9553723169887329, 0.8322981366459626),
+                 (0.9553723169887329, 0.8322981366459626)),
+    "v2_clean": ((0.8969774372073223, 0.7852760736196318),
+                 (0.8969774372073223, 0.7852760736196318)),
+    "v1_mulaw": ((0.9590730518673231, 0.8315789473684211),
+                 (0.9521377791128467, 0.8253968253968255)),
+    "v2_reverb08": ((0.8021829942056327, 0.5929203539823009),
+                    (0.8010796221322537, 0.5955555555555556)),
+}
+EVAL_TOL_FRAME, EVAL_TOL_EVENT = 0.01, 0.03
+EVAL_FILES, EVAL_SECONDS = 8, 120.0
+
+
+def _make_eval_condition(outdir: str, generator: str, seed: int, degradations,
+                         n_files: int, seconds: float) -> tuple:
+    """``make_eval_set`` of one condition at 32 kHz, in a worker process:
+    (labels path, seconds taken)."""
+    from softspoken_tpu_torch.train.evaluate import make_eval_set
+
+    t0 = time.perf_counter()
+    labels = make_eval_set(outdir, n_files=n_files, seconds=seconds, seed=seed,
+                           generator=generator, degradations=degradations)
+    return labels, time.perf_counter() - t0
+
+
+def _score_parity(per_file, pad: float, sr: int, music_threshold=None) -> dict:
+    """scripts/quality_grid.py's ``metrics_from`` at the parity point
+    (threshold 0.1, merge 0.5 s, shift by -pad, clamp, min length 0.1 s,
+    IoU 0.5) with the error taxonomy; with ``music_threshold`` the
+    predictions go through the post-filter as ``postfilter_parity_metrics``
+    applies it, reading contexts from the WAVs."""
+    from softspoken_tpu_torch.engine import postfilter as PF
+    from softspoken_tpu_torch.engine import regions as R
+    from softspoken_tpu_torch.io import load_audio_startstop
+    from softspoken_tpu_torch.train import evaluate as E
+
+    ft, et, tax = {}, {}, {}
+    dropped = total = 0
+    for avg, dur, truth, path in per_file:
+        regs = R.shift_regions(R.find_speech_regions(avg, 0.1, 0.5), -pad)
+        regs = [(max(0.0, s), min(dur, e)) for s, e in regs if e > 0 and s < dur]
+        pred = R.filter_min_length(regs, 0.1)
+        if music_threshold is not None:
+            def read_ctx(s, e, _p=path):
+                return load_audio_startstop(_p, (s, e), target_sr=sr)[0]
+
+            kept, _scores = PF.filter_intervals(pred, read_ctx, sr, dur, music_threshold)
+            dropped += len(pred) - len(kept)
+            total += len(pred)
+            pred = kept
+        E._accumulate(ft, E.frame_metrics(pred, truth, dur))
+        E._accumulate(et, E.event_metrics(pred, truth, 0.5))
+        E.merge_taxonomy(tax, E.event_error_taxonomy(pred, truth, 0.5))
+    return {"frame_f1": E._finalize(ft)["f1"], "event_f1": E._finalize(et)["f1"],
+            "taxonomy": E.finalize_taxonomy(tax), "dropped": dropped, "total": total}
+
+
+def phase_eval(work: str, smi: str) -> int:
+    """(a) The committed checkpoint's quality on four conditions of
+    scripts/quality_grid.py, held to the JAX package's CPU result; (b) the
+    ``eval`` and ``detect`` commands with the operating-point flags, in
+    process.  Returns K1's launches over the phase."""
+    import concurrent.futures
+    import multiprocessing
+
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine import postfilter as PF
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.train import evaluate as E
+
+    ev = os.path.join(work, "eval")
+    shutil.rmtree(ev, ignore_errors=True)
+    os.makedirs(ev)
+    t_phase = time.perf_counter()
+    with open(os.path.join(HERE, "docs", "QUALITY_r05.json")) as f:
+        tpu_record = json.load(f)["conditions"]
+    cfg = Config().with_engine(mel_precision="highest")
+    det = Detector(cfg)
+    log(f"eval detector: pipeline {det.pipeline}, mel kernel {det.mel_kernel}, "
+        f"epoch {det.epoch}")
+    if det.epoch != 48750:
+        raise AssertionError(f"Detector() loaded epoch {det.epoch}, not the trained 48750")
+    sr, pad = cfg.dsp.sample_rate, cfg.engine.pad_seconds
+    reset_launch_counts()
+    misses = []
+    # the four sets synthesize in worker processes while the card detects
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(EVAL_CONDITIONS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futs = [pool.submit(_make_eval_condition, os.path.join(ev, tag), gen, seed, deg,
+                            EVAL_FILES, EVAL_SECONDS)
+                for tag, gen, seed, deg in EVAL_CONDITIONS]
+        for (tag, _gen, seed, _deg), fut in zip(EVAL_CONDITIONS, futs):
+            labels, synth_s = fut.result()
+            before = KERNEL_LAUNCHES["frame_mel"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            per_file = []
+            for path, truth in E.load_labels(labels):
+                res = det.detect_file_streaming(path)
+                per_file.append((np.asarray(res.avg_values, np.float32),
+                                 float(res.audio_seconds), truth, path))
+            detect_s = time.perf_counter() - t0
+            k1 = KERNEL_LAUNCHES["frame_mel"] - before
+            t0 = time.perf_counter()
+            plain = _score_parity(per_file, pad, sr)
+            filt = _score_parity(per_file, pad, sr, PF.DEFAULT_THRESHOLD)
+            score_s = time.perf_counter() - t0
+            ref, tpu = EVAL_REFERENCE[tag], tpu_record[tag]
+            tpu_pf = tpu.get("parity_postfilter", {})
+            for label, got, (rf, re_) in (("plain", plain, ref[0]), ("filtered", filt, ref[1])):
+                df, de = got["frame_f1"] - rf, got["event_f1"] - re_
+                log(f"eval {tag} (seed {seed}) {label}: frame F1 {got['frame_f1']:.4f} "
+                    f"(JAX CPU {rf:.4f}, diff {df:+.4f}, tol {EVAL_TOL_FRAME}), event F1 "
+                    f"{got['event_f1']:.4f} (JAX CPU {re_:.4f}, diff {de:+.4f}, tol "
+                    f"{EVAL_TOL_EVENT}); taxonomy {json.dumps(got['taxonomy'])}")
+                if abs(df) > EVAL_TOL_FRAME or abs(de) > EVAL_TOL_EVENT:
+                    misses.append(f"{tag} {label}: frame {df:+.4f}, event {de:+.4f}")
+            log(f"eval {tag}: music filter dropped {filt['dropped']}/{filt['total']} regions; "
+                f"TPU record (docs/QUALITY_r05.json, information only): parity "
+                f"{tpu['parity']['frame_f1']}/{tpu['parity']['event_f1']}, postfilter "
+                f"{tpu_pf.get('frame_f1')}/{tpu_pf.get('event_f1')} dropped "
+                f"{tpu_pf.get('regions_dropped')}/{tpu_pf.get('regions_total')}; "
+                f"synth {synth_s:.2f} s, detect {detect_s:.3f} s "
+                f"({EVAL_FILES * EVAL_SECONDS / detect_s:.1f} audio-s/wall-s), "
+                f"scoring {score_s:.2f} s, "
+                f"K1 launches {k1} | {smi}")
+            if not k1:
+                raise AssertionError(f"eval {tag} did not launch frame_mel")
+    launches_a = KERNEL_LAUNCHES["frame_mel"]
+
+    # (b) the CLI, in process, on the card
+    times: dict = {}
+    d1, d2 = os.path.join(ev, "cli_v1"), os.path.join(ev, "cli_v2")
+    before = KERNEL_LAUNCHES["frame_mel"]
+    out = _cli(["eval", "--make-synthetic", d1, "--eval-files", "8", "--eval-seconds", "120"],
+               "eval v1 8x120 s", times)[1]
+    res = json.loads(out.strip().splitlines()[-1])
+    grew = KERNEL_LAUNCHES["frame_mel"] - before
+    log(f"cli eval v1: frame {json.dumps(res['frame'])} event {json.dumps(res['event'])}, "
+        f"{len(res['files'])} files, K1 launches {grew}")
+    if set(res) != {"frame", "event", "files"} or res["frame"]["f1"] < 0.80 or not grew:
+        raise AssertionError(f"cli eval v1: frame F1 {res['frame']['f1']}, K1 launches {grew}")
+    out = _cli(["eval", "--make-synthetic", d2, "--generator", "v2", "--degrade", "fading",
+                "--eval-files", "2", "--eval-seconds", "60", "--music-filter",
+                "--exit-threshold", "0.05", "--grid-smooth", "3"], "eval v2 fading flags",
+               times)[1]
+    res2 = json.loads(out.strip().splitlines()[-1])
+    log(f"cli eval v2 fading --music-filter --exit-threshold 0.05 --grid-smooth 3: frame F1 "
+        f"{res2['frame']['f1']:.4f}, event F1 {res2['event']['f1']:.4f}")
+    if set(res2) != {"frame", "event", "files"} or len(res2["files"]) != 2:
+        raise AssertionError(f"cli eval v2: {res2}")
+    csv_path = os.path.join(ev, "detect_flags.csv")
+    rep = _json_tail(_cli(["detect", "--files", os.path.join(d1, "eval_000.wav"), "--out",
+                           csv_path, "--music-filter", "--exit-threshold", "0.05",
+                           "--grid-smooth", "3"], "detect flags", times)[1])
+    with open(csv_path) as f:
+        rows = f.read().splitlines()
+    log(f"cli detect --music-filter --exit-threshold 0.05 --grid-smooth 3: "
+        f"{rep['rows_added']} rows, {len(rows) - 1} in the CSV")
+    if rep["files_done"] != 1 or len(rows) - 1 != rep["rows_added"] or not rep["rows_added"]:
+        raise AssertionError(f"cli detect with the operating-point flags: {rep}")
+    log("eval CLI wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" | {smi}")
+    shutil.rmtree(ev)
+    log(f"eval phase: {time.perf_counter() - t_phase:.1f} s, K1 launches "
+        f"{KERNEL_LAUNCHES['frame_mel']} ({launches_a} in the four conditions)")
+    if misses:
+        raise AssertionError("eval quality off the JAX reference: " + "; ".join(misses))
+    return KERNEL_LAUNCHES["frame_mel"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
@@ -1399,6 +1621,7 @@ def main() -> int:
         phase_determinism(wav, chunk_device_ms, smi)
         phase_trained(work, smi)
         phase_workflow(work, wav, smi)
+        k1["launches_eval"] = phase_eval(work, smi)
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -8,13 +8,16 @@
                   exporters, render a spectrogram PNG, export a segment WAV
   silence       — mute the erased intervals and write *_silenced.wav
   train         — ``train --synthetic --steps N --out model.pth``
+  eval          — F1 of the detector on labeled audio (``--make-synthetic
+                  DIR`` synthesizes a labeled eval set first)
 
-The JAX package's commands and flags.  ``detect`` runs on the CUDA card by
-default (``--device cpu`` to run on the CPU), with the trained weights of
-``root/models/spec_unet_2d/model_checkpoint.pth`` unless ``--checkpoint`` or
-``--random-init`` says otherwise.  It reads WAV (RF64, RIFX, G.711, ADPCM),
-FLAC, AIFF/AIFC, W64, CAF, AU and SPHERE; an MP3, Ogg Vorbis or Opus file is
-recorded as an error naming its format.  The pipeline, mel kernel and
+The JAX package's commands and flags.  ``detect`` and ``eval`` run on the
+CUDA card by default (``--device cpu`` to run on the CPU), with the trained
+weights of ``root/models/spec_unet_2d/model_checkpoint.pth`` unless
+``--checkpoint`` (``eval --ckpt``) or ``--random-init`` says otherwise.
+They read WAV (RF64, RIFX, G.711, ADPCM), FLAC, AIFF/AIFC, W64, CAF, AU
+and SPHERE; ``detect`` records an MP3, Ogg Vorbis or Opus file as an error
+naming its format.  The pipeline, mel kernel and
 resampler are chosen in the ``--config`` JSON (``{"engine": {"pipeline":
 "host", "mel_kernel": "pallas"}}``).  ``detect`` and ``silence`` print a
 JSON report and exit nonzero when any file failed.
@@ -44,6 +47,16 @@ def _load_config(args) -> Config:
         cfg = cfg.with_engine(threshold=args.threshold)
     if getattr(args, "break_duration", None) is not None:
         cfg = cfg.with_engine(break_duration=args.break_duration)
+    if getattr(args, "exit_threshold", None) is not None:
+        cfg = cfg.with_engine(exit_threshold=args.exit_threshold)
+    if getattr(args, "grid_smooth", None) is not None:
+        cfg = cfg.with_engine(grid_smooth=args.grid_smooth)
+    if getattr(args, "music_filter", None) is not None:
+        from .engine import postfilter
+
+        thr = args.music_filter  # a bare --music-filter is -1: the default
+        cfg = cfg.with_engine(
+            music_filter=postfilter.DEFAULT_THRESHOLD if thr < 0 else thr)
     if getattr(args, "strict_reference", False):
         cfg = cfg.with_engine(skip_processed_files=False)
     return cfg
@@ -324,6 +337,77 @@ def cmd_silence(args) -> Dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# eval
+# ---------------------------------------------------------------------------
+
+def cmd_eval(args) -> None:
+    from .engine import Detector
+    from .train import evaluate as E
+
+    if args.make_synthetic:
+        labels = E.make_eval_set(
+            args.make_synthetic, n_files=args.eval_files,
+            seconds=args.eval_seconds, seed=args.seed,
+            generator=args.generator,
+            snr_db=(args.snr, args.snr) if args.snr is not None else None,
+            degradations=args.degrade.split(",") if args.degrade else None,
+        )
+        print(f"synthesized eval set → {labels}", file=sys.stderr)
+    else:
+        labels = args.labels
+    if not labels:
+        raise SystemExit("eval: need --labels or --make-synthetic DIR")
+
+    cfg = _load_config(args)  # applies --threshold/--break-duration too
+    det = Detector(cfg, checkpoint_path=args.ckpt, device=args.device)
+    result = E.evaluate_detector(det, E.load_labels(labels), iou=args.iou)
+    print(json.dumps(result), flush=True)
+
+
+def _add_operating_point_flags(p, music_help: str) -> None:
+    """--threshold, --break-duration and the three opt-in operating-point
+    flags shared by detect and eval."""
+    p.add_argument("--threshold", type=float, help="score threshold (default 0.1)")
+    p.add_argument("--break-duration", type=float, help="gap-merge seconds (default 0.5)")
+    p.add_argument("--exit-threshold", type=float,
+                   help="hysteresis exit level (< --threshold): regions still "
+                        "need a bin above the main threshold but extend over "
+                        "bins above this (default: off)")
+    p.add_argument("--grid-smooth", type=int,
+                   help="odd median-smoothing width (bins) applied to the "
+                        "averaged grid before thresholding (default: off)")
+    p.add_argument("--music-filter", type=float, nargs="?", const=-1.0,
+                   metavar="THRESHOLD", help=music_help)
+
+
+def _add_eval_parser(sub) -> None:
+    """The JAX CLI's ``eval`` flags; ``--ckpt`` is a .pth."""
+    pe = sub.add_parser("eval", help="score detections vs labeled intervals (F1)")
+    pe.add_argument("--labels", help="labels.csv (file,start_time,end_time) or "
+                    "Audacity .txt label track(s)")
+    pe.add_argument("--make-synthetic", metavar="DIR",
+                    help="first synthesize a labeled eval set into DIR")
+    pe.add_argument("--eval-files", type=int, default=8)
+    pe.add_argument("--eval-seconds", type=float, default=120.0)
+    pe.add_argument("--generator", choices=["v1", "v2"], default="v1",
+                    help="v1 = training-family synth; v2 = independent "
+                         "out-of-family generator (train/synth2.py)")
+    pe.add_argument("--snr", type=float,
+                    help="pin per-event SNR (dB); default 0-20 dB draws")
+    pe.add_argument("--degrade",
+                    help="comma list of degradations (train/degrade.py): "
+                         "rolloff4k,clip,mulaw,hum,dropout,bfp4,reverb03,"
+                         "reverb08,reverb15,fading")
+    pe.add_argument("--ckpt", help="checkpoint .pth (default: the trained "
+                    "root/models/spec_unet_2d/model_checkpoint.pth)")
+    pe.add_argument("--iou", type=float, default=0.5)
+    pe.add_argument("--seed", type=int, default=1234)
+    _add_operating_point_flags(pe, "music post-filter (see detect --music-filter)")
+    pe.add_argument("--device", help="torch device (default: the CUDA card)")
+    pe.set_defaults(func=cmd_eval)
+
+
 def cmd_train(args) -> Dict:
     from .train import fit_synthetic
 
@@ -450,8 +534,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the deterministic random-init fixture weights")
     d.add_argument("--precision", choices=["fast", "parity"])
     d.add_argument("--device-batch", type=int)
-    d.add_argument("--threshold", type=float, help="score threshold (default 0.1)")
-    d.add_argument("--break-duration", type=float, help="gap-merge seconds (default 0.5)")
+    _add_operating_point_flags(
+        d, "drop regions whose surrounding audio scores rhythmic/music-like "
+           "(engine/postfilter.py). Optional value = score threshold "
+           "(default 0.85); off when the flag is absent")
     d.add_argument("--strict-reference", action="store_true",
                    help="reprocess files already in the CSV")
     d.add_argument("--streaming", action="store_true",
@@ -482,6 +568,7 @@ def build_parser() -> argparse.ArgumentParser:
     ps.set_defaults(func=cmd_silence)
 
     _add_train_parser(sub)
+    _add_eval_parser(sub)
     return p
 
 

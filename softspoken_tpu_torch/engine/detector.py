@@ -28,11 +28,13 @@ and bf16 output.  ``mel_kernel`` / ``mel_precision`` pin either explicitly;
 (``ops/dft_mel.py``), where the mel precision does not apply.
 
 The detection path computes the mask head only (``SpecUNet2D.mask_logits``);
-``process_batch`` returns both heads.  Not ported yet, and raising
-``NotImplementedError`` at use: the music post-filter
-(``engine.music_filter``), chunk journaling (``chunk_checkpoint_every``,
-``journal_dir``), the lossy upload wires, ``decoder_upsample="phase"``,
-``conv_impl="packed"`` and orbax checkpoint directories.
+``process_batch`` returns both heads.  ``engine.music_filter`` runs the
+music post-filter (``engine/postfilter.py``, numpy on the host) over each
+result's interval list, where the JAX detector runs it.  Not ported yet,
+and raising ``NotImplementedError`` at use: chunk journaling
+(``chunk_checkpoint_every``, ``journal_dir``), the lossy upload wires,
+``decoder_upsample="phase"``, ``conv_impl="packed"`` and orbax checkpoint
+directories.
 
 Without ``state_dict`` or ``checkpoint_path`` the detector loads the
 trained weights, ``root/models/spec_unet_2d/model_checkpoint.pth`` in the
@@ -130,8 +132,6 @@ class Detector:
         self.device = resolve_device(device)
         self.epoch = -1
         eng = config.engine
-        if eng.music_filter is not None:
-            raise _not_ported("the music post-filter (engine.music_filter)")
         if eng.decoder_upsample not in ("auto", "concat"):
             raise _not_ported(f"decoder_upsample={eng.decoder_upsample!r}")
         if eng.conv_impl not in ("auto", "direct"):
@@ -359,7 +359,15 @@ class Detector:
                 out[a0 - s0: a1 - s0] = audio[a0 - pad: a1 - pad]
 
         logits = self._logits_from_segments(len(audio) + 2 * pad, fill, progress, timers)
-        return self._finalize(logits, len(audio) / cfg.dsp.sample_rate, timers)
+        result = self._finalize(logits, len(audio) / cfg.dsp.sample_rate, timers)
+        if cfg.engine.music_filter is not None:
+            sr = cfg.dsp.sample_rate
+
+            def read_ctx(s: float, e: float) -> np.ndarray:
+                return audio[int(s * sr): int(e * sr)]
+
+            result = self._apply_music_filter(result, read_ctx)
+        return result
 
     def detect_file(
         self, path: str, progress: Optional[Callable[[float], None]] = None
@@ -416,7 +424,10 @@ class Detector:
             logits = self._logits_from_segments(total + 2 * pad, fill, progress, timers)
         finally:
             decode_iter.close()  # release the file handle now, not at collection
-        return self._finalize(logits, total / sr, timers)
+        result = self._finalize(logits, total / sr, timers)
+        if cfg.engine.music_filter is not None:
+            result = self._apply_music_filter(result, self._file_reader(path))
+        return result
 
     def detect_file_fused(
         self, path: str, progress: Optional[Callable[[float], None]] = None,
@@ -426,4 +437,38 @@ class Detector:
         overlap grid run there chunk by chunk (engine/fused.py)."""
         from .fused import detect_file_fused
 
-        return detect_file_fused(self, path, progress, journal_dir, timers=timers)
+        result = detect_file_fused(self, path, progress, journal_dir, timers=timers)
+        if self.cfg.engine.music_filter is not None:
+            result = self._apply_music_filter(result, self._file_reader(path))
+        return result
+
+    def _file_reader(self, path: str):
+        """Context reader for the music post-filter: [s, e) seconds of the
+        file as internal-rate mono (None on decode failure -> region kept)."""
+        from ..io import load_audio_startstop
+
+        def read_ctx(s: float, e: float):
+            audio, _sr = load_audio_startstop(
+                path, (s, e), target_sr=self.cfg.dsp.sample_rate)
+            return audio
+
+        return read_ctx
+
+    def _apply_music_filter(self, result: DetectionResult, read_ctx) -> DetectionResult:
+        """Drop regions whose context scores music-like (engine/postfilter).
+
+        Fails open (an unreadable or too-short context keeps its region).
+        The averaged grid is left untouched — only the interval list is
+        filtered.
+        """
+        from . import postfilter
+
+        threshold = float(self.cfg.engine.music_filter)
+        kept, _scores = postfilter.filter_intervals(
+            result.intervals, read_ctx, self.cfg.dsp.sample_rate,
+            result.audio_seconds, threshold)
+        if len(kept) != len(result.intervals):
+            log.info("music filter dropped %d/%d region(s) (threshold %.2f)",
+                     len(result.intervals) - len(kept), len(result.intervals),
+                     threshold)
+        return dataclasses.replace(result, intervals=kept)

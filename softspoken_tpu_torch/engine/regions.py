@@ -114,9 +114,16 @@ def shift_regions(regions, offset_seconds: float) -> List[Tuple[float, float]]:
     return [(s + offset_seconds, e + offset_seconds) for (s, e) in regions]
 
 
+def filter_min_length(regions, minimum_detection_len: float = 0.1):
+    """Review-stage filter: keep only length > minimum_detection_len
+    (settings.py:26, review_detections.py:764-770)."""
+    return [(s, e) for (s, e) in regions if (e - s) > minimum_detection_len]
+
+
 def merge_intervals(intervals, gap: float = 0.3) -> List[Tuple[float, float]]:
-    """Sort and merge intervals whose gap is ≤ ``gap`` seconds (the label
-    merge of ``train/synth.synth_field_recording``)."""
+    """Sort and merge intervals whose gap is ≤ ``gap`` seconds: the label
+    merge shared by both synthetic generators (``train/synth.py``,
+    ``train/synth2.py``)."""
     merged: List[Tuple[float, float]] = []
     for s, e in sorted(intervals):
         if merged and s - merged[-1][1] <= gap:

@@ -245,3 +245,20 @@ def test_mute_twin_on_the_card_matches_numpy(fade):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_eval_on_the_card_matches_the_cpu(tmp_path):
+    """``evaluate_detector`` on a 2 x 30 s synthetic set in fast mode: the
+    card (K1) within 0.01 frame F1 of the CPU (the plain mel chain)."""
+    _need_card()
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.train import evaluate as E
+
+    labeled = E.load_labels(E.make_eval_set(str(tmp_path), n_files=2, seconds=30.0, seed=21))
+    KERNEL_LAUNCHES.clear()
+    card = E.evaluate_detector(Detector(Config()), labeled)
+    assert KERNEL_LAUNCHES["frame_mel"] > 0
+    cpu = E.evaluate_detector(Detector(Config(), device="cpu"), labeled)
+    assert abs(card["frame"]["f1"] - cpu["frame"]["f1"]) <= 0.01
+    assert card["frame"]["f1"] > 0.8
