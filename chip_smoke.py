@@ -8,12 +8,13 @@ Phases:
      and the kernels built from ``softspoken_tpu_torch/csrc``, one nvcc per
      source, all started together (build seconds); then the tensor-core
      instructions (HGMMA = wgmma, HMMA = mma.sync) that ``cuobjdump -sass``
-     finds in each kernel instance of each library: an instance without any
-     fails the run
+     finds in each kernel instance of each library: an instance of K1 or K2
+     without any fails the run (K3 claims none)
   2. every kernel against its plain PyTorch version at its path's shapes,
      with its stated tolerance, and its timing beside the bound (K1 in all
      three modes) with the achieved TFLOP/s: K1 frame_mel (fused path), K2
-     dft_mel (host path, mel_kernel="pallas")
+     dft_mel (host path, mel_kernel="pallas"), K3 adpcm_decode (the adpcm4
+     wire) bit-equal on adversarial wires, its one-block chain timed too
   3. the fused path: ``detect`` on a 30-minute 32 kHz PCM16 WAV in fast
      mode (launch counts reset just before, read just after), then
      parity-mode checks: chunked == unchunked on the card, and card == CPU
@@ -75,6 +76,21 @@ Phases:
      --exit-threshold 0.05 --grid-smooth 3``, and ``detect`` with the same
      flags writing its CSV; wall seconds of each.  Phase 1 also reports
      which codec libraries of the JAX package's MP3/Ogg/Opus readers load.
+  9. wires (slice 9, after ``trained``): K3 bit-equal on the 30-minute WAV's
+     first chunk at the 16 kHz wire (timed); the mu-law device decode within
+     2 ulp of the same float32 formula on the CPU on all 256 codes, and no
+     farther from the float64 ``decode_host`` than that formula is; detect on the 30-minute WAV (fixture weights)
+     under pcm16, mulaw8 and adpcm4 with wire_decimate "auto" and "off",
+     warm, each with audio-s/wall-s, host_fill, wire bytes and device ms
+     per chunk with the decode's share, and K3's launches (one per adpcm4
+     chunk; adpcm4 grids bit-equal run to run); the trained weights' frame
+     and event F1 under each wire on the 8 labeled fields of ``trained``
+     (mel "highest"): within 0.01 frame F1 of pcm16, and within 0.01 / 0.03
+     of the JAX package's CPU result (``WIRE_REFERENCE``); the branches: a
+     24-bit mono WAV under adpcm4 bit-equal to mulaw8 (the reference's
+     wire), a 24-bit mono FLAC under adpcm4 bit-equal to its top 16 bits as
+     a PCM16 WAV, a stereo FLOAT WAV under mulaw8 bit-equal to its int16
+     downmix, and "auto" on the int16 engine.
 Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
 over phase 8), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
@@ -115,7 +131,8 @@ TOL_BF16 = 2.0 ** -6
 # dft_mel (K2) against its plain version: float32 (TF32 off) against the
 # six-pass split, as "highest" above
 TOL_DFT_MEL = 1e-4
-KERNELS = ("frame_mel", "dft_mel")
+KERNELS = ("frame_mel", "dft_mel", "adpcm_decode")
+TENSOR_CORE_KERNELS = ("frame_mel", "dft_mel")  # K3 is integer work: none claimed
 MEL_PASSES = 6  # the mel product is the six-pass bf16 split in every mode
 
 
@@ -249,7 +266,9 @@ def phase_toolchain() -> dict:
         per_fn = tensor_core_counts(_build.lib_path(name))
         for fn, (hgmma, hmma) in per_fn.items():
             log(f"  [{name}] sass {fn[:120]}: HGMMA={hgmma} HMMA={hmma}")
-        if not per_fn or any(h + m == 0 for h, m in per_fn.values()):
+        if not per_fn:
+            raise AssertionError(f"{name}: no kernel in its library")
+        if name in TENSOR_CORE_KERNELS and any(h + m == 0 for h, m in per_fn.values()):
             raise AssertionError(f"{name}: a kernel instance has no tensor-core instruction")
         totals[name] = sum(h + m for h, m in per_fn.values())
     return totals
@@ -398,6 +417,100 @@ def phase_dft_mel(peaks) -> dict:
     del frames, flat, buf, got, ref
     torch.cuda.empty_cache()
     return rec
+
+
+def adversarial_adpcm_wire(nb: int, seed: int) -> np.ndarray:
+    """Random ADPCM wire bytes with header step indices 0..255 (the decode
+    clips them to 88), seeds at -32768 and 32767, and blocks of nibble 15 /
+    nibble 7 runs that drive the predictor into both clips."""
+    from softspoken_tpu_torch.ops import adpcm
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 256, nb * adpcm.BLOCK_BYTES).astype(np.uint8).reshape(nb, -1)
+    w[0::4, 0:2] = [0x00, 0x80]
+    w[1::4, 0:2] = [0xFF, 0x7F]
+    w[0::4, adpcm.HDR_BYTES:] = 0xFF
+    w[1::4, adpcm.HDR_BYTES:] = 0x77
+    return w.reshape(-1)
+
+
+def adpcm_bound(peaks, n: int) -> dict:
+    """K3's least time: the bytes (each wire byte read once, each float
+    written once) over the memory rate, or its integer work (~20 operations
+    a step: lookup, three masked adds, two clips) at one operation per lane
+    a cycle (half the float32 FMA peak); the bytes bound it."""
+    from softspoken_tpu_torch.ops import adpcm
+
+    n_bytes = adpcm.wire_bytes(n) + 4 * n
+    t_bytes, t_ops = n_bytes / peaks["bytes"], 20 * n / (peaks["fp32"] / 2)
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops_ms": 1e3 * t_ops}
+
+
+def check_adpcm(label: str, wire: torch.Tensor, n: int, peaks, smi: str,
+                time_it: bool = True) -> dict:
+    """K3 on ``wire`` against its plain version (bit-equal, the only
+    tolerance), then its time beside the bound and the plain version's."""
+    from softspoken_tpu_torch.ops import adpcm
+
+    got = adpcm.decode_device(wire, n)
+    torch.cuda.synchronize()
+    ref = adpcm.decode_device_ref(wire, n)
+    err = float((got - ref).abs().max())
+    equal = bool(torch.equal(got, ref))
+    log(f"adpcm_decode {label}: n={n} blocks={wire.numel() // adpcm.BLOCK_BYTES} "
+        f"bit-equal={equal} max_abs_err={err:.3e} tol=0 (bit-equal)")
+    if not equal or got.shape != (n,):
+        raise AssertionError(f"adpcm_decode {label} disagrees with its plain version")
+    out = {"max_abs_err": err}
+    if time_it:
+        b = adpcm_bound(peaks, n)
+        ms = cuda_time_ms(lambda: adpcm.decode_device(wire, n))
+        plain_ms = cuda_time_ms(lambda: adpcm.decode_device_ref(wire, n), warmup=1, iters=2,
+                                reps=3)
+        one = wire[: adpcm.BLOCK_BYTES]  # one block: one dependent chain of 255 steps
+        chain_ms = cuda_time_ms(lambda: adpcm.decode_device(one, adpcm.SPB), iters=50)
+        clk = sm_clock_mhz()
+        log(f"adpcm_decode {label} timing: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=none bound_ms={b['bound_ms']:.4f} ({b['bound_by']}: {b['bytes']} bytes; "
+            f"integer work {b['ops_ms']:.4f}) = {100 * b['bound_ms'] / ms:.1f}% of bound; "
+            f"one block's chain {chain_ms:.4f} ms per launch (launch gap included) = "
+            f"{chain_ms * 1e-3 * clk * 1e6 / (adpcm.SPB - 1):.1f} cycles a step at "
+            f"{clk:.0f} MHz (max SM clock) | {smi}")
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   chain_ms=chain_ms)
+    return out
+
+
+def sm_clock_mhz() -> float:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60, check=True)
+    return float(r.stdout.strip().splitlines()[0])
+
+
+def phase_adpcm(peaks, smi: str) -> dict:
+    """K3 against its plain version on adversarial wires: one of a default
+    chunk at the 16 kHz decimated wire (timed) and one with a short tail."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine.fused import FusedStreamingEngine
+    from softspoken_tpu_torch.ops import adpcm
+
+    det = Detector(Config(), state_dict=fixture_state_dict(0))
+    n = FusedStreamingEngine(det, 16000, "adpcm4").in_len
+    wire = torch.from_numpy(adversarial_adpcm_wire(adpcm.n_blocks(n), seed=3)).cuda()
+    rec = check_adpcm("adversarial chunk", wire, n, peaks, smi)
+    short = torch.from_numpy(adversarial_adpcm_wire(37, seed=4)).cuda()
+    check_adpcm("adversarial short tail", short, 36 * adpcm.SPB + 5, peaks, smi, time_it=False)
+    return {"name": "adpcm_decode", "route": "cuda",
+            "source": "softspoken_tpu_torch/csrc/adpcm_decode.cu",
+            "replaces": "softspoken_tpu/ops/adpcm.py:175 (lax.scan, never Pallas)",
+            "launches": None, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "tensor_cores": False,
+            "chain_ms": rec["chain_ms"]}
 
 
 def _field_signal(seconds: float, sr: int, seed: int) -> np.ndarray:
@@ -1143,6 +1256,244 @@ def phase_trained(work: str, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# slice 9: the lossy upload wires (mulaw8, adpcm4, wire decimation) and K3
+# (tag, upload_codec, wire_decimate)
+WIRES = (("pcm16", "pcm16", "auto"), ("mulaw8_auto", "mulaw8", "auto"),
+         ("mulaw8_off", "mulaw8", "off"), ("adpcm4_auto", "adpcm4", "auto"),
+         ("adpcm4_off", "adpcm4", "off"))
+# The JAX package's own result on the trained phase's 8 labeled 120 s fields
+# (seeds 0-7, 32 kHz PCM16): tests/jax_wire_reference.py on the CPU at commit
+# d38cc7b, trained checkpoint, fast mode with mel_precision="highest", the
+# fused pipeline under each wire.  (mean frame F1, mean event F1).
+WIRE_REFERENCE = {
+    "pcm16": (0.9665015136106887, 0.8320634920634921),
+    "mulaw8_auto": (0.9644566508796881, 0.8358134920634921),
+    "mulaw8_off": (0.9664369080430482, 0.8286019536019535),
+    "adpcm4_auto": (0.9647802068251726, 0.822063492063492),
+    "adpcm4_off": (0.9666731237269015, 0.8320634920634921),
+}
+WIRE_TOL_FRAME, WIRE_TOL_EVENT = 0.01, 0.03  # card vs the JAX CPU result, per wire
+WIRE_TOL_PCM16 = 0.01  # a lossy wire's mean frame F1 vs pcm16's, on the card
+
+
+def _engine_kinds(det) -> list:
+    """(native_sr, wire kind) of every fused engine the detector built."""
+    return sorted((k[0], k[1]) for k in det._engines)
+
+
+def _decode_ms(eng) -> float:
+    """Device time of the engine's wire decode alone on a chunk-sized wire."""
+    from softspoken_tpu_torch.ops import adpcm, mulaw
+
+    w = torch.zeros(eng._wire_len, dtype=eng._wire_dtype, device="cuda")
+    if eng.kind == "adpcm4":
+        return cuda_time_ms(lambda: adpcm.decode_device(w, eng.in_len))
+    if eng.kind == "mulaw8":
+        return cuda_time_ms(lambda: mulaw.decode_device(w))
+    return cuda_time_ms(lambda: w.to(torch.float32) * (1.0 / 32768.0))
+
+
+def phase_wires(work: str, wav: str, peaks, smi: str, k3: dict) -> None:
+    """(1) K3 on the 30-minute WAV's first chunk at the 16 kHz wire; (2) the
+    mu-law device decode on all 256 codes; (3) detect on the 30-minute WAV
+    under each of ``WIRES`` (fixture weights), warm, adpcm4 twice; (4) the
+    trained weights' F1 under each wire on 8 labeled fields; (5) the
+    branches: a 24-bit WAV and FLAC under adpcm4, a stereo FLOAT WAV under
+    mulaw8, and "auto"."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+    from softspoken_tpu_torch.io import read_mono, wavio
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, adpcm, mulaw, reset_launch_counts
+    from softspoken_tpu_torch.train.evaluate import event_metrics, frame_metrics
+    from softspoken_tpu_torch.train.synth import synth_field_recording
+
+    t_phase = time.perf_counter()
+    # (2) the mu-law decode, all 256 codes: the card's against the same
+    # float32 formula on the CPU (which tests/test_torch_wires.py holds to
+    # 2 ulp of the JAX one), and against the float64 decode_host, from which
+    # the float32 formula itself sits up to 6 ulp away (expm1 magnifies the
+    # rounding of its argument by up to |x| = 5.5)
+    q = np.arange(-128, 128, dtype=np.int8)
+    got = mulaw.decode_device(torch.from_numpy(q).cuda()).cpu().numpy()
+    cpu = mulaw.decode_device(torch.from_numpy(q)).numpy()
+    want = mulaw.decode_host(q)
+
+    def ulps(a, b):
+        return int(np.max(np.abs(a.view(np.int32).astype(np.int64)
+                                 - b.view(np.int32).astype(np.int64))))
+
+    log(f"wires mulaw decode_device on the card, 256 codes: {ulps(got, cpu)} float32 ulp "
+        f"from the formula on the CPU (tol 2); {ulps(got, want)} ulp from decode_host "
+        f"(tol: the CPU formula's own {ulps(cpu, want)}), "
+        f"max_abs_err={float(np.abs(got - want).max()):.3e}")
+    if ulps(got, cpu) > 2 or ulps(got, want) > ulps(cpu, want):
+        raise AssertionError("the mu-law device decode is off its reference")
+
+    # (3) the 30-minute WAV under each wire, fixture weights, fast mode
+    sd = fixture_state_dict(0)
+    seconds = 1800.0
+    grids, captured = {}, []
+    orig_decode = adpcm.decode_device
+
+    def spy(w, n):  # keeps the main path's first adpcm4 wire for (1)
+        if not captured:
+            captured.append((w.clone(), n))
+        return orig_decode(w, n)
+
+    for tag, codec, decim in WIRES:
+        det = Detector(Config().with_engine(upload_codec=codec, wire_decimate=decim),
+                       state_dict=sd)
+        if tag == "adpcm4_auto":
+            adpcm.decode_device = spy
+        try:
+            warm = det.detect_file_streaming(wav)  # warm-up (cuDNN, kernels, engine)
+        finally:
+            adpcm.decode_device = orig_decode
+        res, wall, st, launches, calls = _timed_detect(det, wav)
+        (sr_w, kind), = _engine_kinds(det)
+        eng = get_fused_engine(det, sr_w, kind)
+        n_chunks = -(-res.num_windows // eng.chunk_w)
+        chunk_ms = 1e3 * eng.chunk_w * det.cfg.engine.step_seconds / eng.device_only_rate(4)
+        dec_ms = _decode_ms(eng)
+        wire_b = eng._wire_len * torch.empty(0, dtype=eng._wire_dtype).element_size()
+        same = np.array_equal(warm.avg_values, res.avg_values)
+        grids[tag] = res
+        log(f"wires detect {tag} (30-min 32 kHz WAV, fixture weights): engine {kind} at "
+            f"{sr_w} Hz, audio_sec_per_wall_sec={seconds / wall:.2f} wall_seconds={wall:.4f} "
+            f"host_fill={st.get('host_fill', 0.0):.4f} wait_prepare="
+            f"{st.get('wait_prepare', 0.0):.4f} wire_bytes_per_chunk={wire_b} "
+            f"device_ms_per_chunk={chunk_ms:.3f} decode_ms={dec_ms:.4f} "
+            f"({100 * dec_ms / chunk_ms:.2f}%) chunks={n_chunks} "
+            f"launches={json.dumps(launches)} native_calls={json.dumps(calls)} "
+            f"grid equal to the warm-up run={same} | {smi}")
+        k3_launches = launches.get("adpcm_decode", 0)
+        if not launches.get("frame_mel") or not np.isfinite(res.avg_values).all():
+            raise AssertionError(f"wires {tag}: frame_mel not launched or a grid not finite")
+        if k3_launches != (n_chunks if kind == "adpcm4" else 0):
+            raise AssertionError(f"wires {tag}: adpcm_decode launched {k3_launches} times "
+                                 f"for {n_chunks} chunks")
+        if kind in ("mulaw8", "adpcm4") and decim == "auto" and not calls.get("fir_decim_i16"):
+            raise AssertionError(f"wires {tag}: the native decimator did not run")
+        if kind == "adpcm4":
+            if not same:
+                raise AssertionError(f"wires {tag}: two runs gave different grids")
+            k3["launches"] = k3_launches
+    ref = grids["pcm16"].avg_values
+    log("wires detect: grid max_abs_diff from pcm16 " + ", ".join(
+        f"{t} {float(np.abs(r.avg_values - ref).max()):.3e}" for t, r in grids.items()
+        if t != "pcm16") + "; intervals equal to pcm16's " + ", ".join(
+        f"{t} {r.intervals == grids['pcm16'].intervals}" for t, r in grids.items() if t != "pcm16"))
+
+    # (1) K3 on the main path's first chunk (the adversarial wires ran in phase 2)
+    wire, n = captured[0]
+    rec = check_adpcm("30-min WAV's first chunk, 16 kHz wire", wire, n, peaks, smi)
+    k3["ms_first_chunk"] = rec["ms"]
+    k3["max_abs_err"] = max(k3["max_abs_err"], rec["max_abs_err"])
+
+    # (4) quality of the trained weights under each wire
+    sr, fseconds = 32000, 120.0
+    fields = []
+    t0 = time.perf_counter()
+    for seed in range(8):
+        audio, truth = synth_field_recording(np.random.default_rng(seed), fseconds, sr=sr)
+        path = os.path.join(work, f"wires_field_{seed}.wav")
+        wavio.write(path, audio, sr, subtype="PCM_16")
+        fields.append((path, truth))
+    log(f"wires: 8 labeled 120 s fields synthesized in {time.perf_counter() - t0:.1f} s")
+    means, misses = {}, []
+    for tag, codec, decim in WIRES:
+        det = Detector(Config().with_engine(mel_precision="highest", upload_codec=codec,
+                                            wire_decimate=decim))
+        if det.epoch != 48750:
+            raise AssertionError(f"Detector() loaded epoch {det.epoch}, not the trained 48750")
+        t0 = time.perf_counter()
+        sc = []
+        for path, truth in fields:
+            r = det.detect_file_streaming(path)
+            sc.append((frame_metrics(r.intervals, truth, fseconds)["f1"],
+                       event_metrics(r.intervals, truth)["f1"]))
+        f = np.array(sc)
+        means[tag] = (float(f[:, 0].mean()), float(f[:, 1].mean()))
+        rf, re_ = WIRE_REFERENCE[tag]
+        df, de = means[tag][0] - rf, means[tag][1] - re_
+        log(f"wires quality {tag}: frame F1 mean={means[tag][0]:.4f} (JAX CPU {rf:.4f}, diff "
+            f"{df:+.4f}, tol {WIRE_TOL_FRAME}) event F1 mean={means[tag][1]:.4f} (JAX CPU "
+            f"{re_:.4f}, diff {de:+.4f}, tol {WIRE_TOL_EVENT}); per field "
+            + " ".join(f"{a:.3f}/{b:.3f}" for a, b in sc)
+            + f"; {time.perf_counter() - t0:.2f} s | {smi}")
+        if abs(df) > WIRE_TOL_FRAME or abs(de) > WIRE_TOL_EVENT:
+            misses.append(f"{tag}: frame {df:+.4f}, event {de:+.4f} from the JAX CPU result")
+    for tag in means:
+        gap = means[tag][0] - means["pcm16"][0]
+        log(f"wires quality {tag}: mean frame F1 {gap:+.4f} from pcm16 on the card "
+            f"(tol {WIRE_TOL_PCM16})")
+        if abs(gap) > WIRE_TOL_PCM16:
+            misses.append(f"{tag}: frame {gap:+.4f} from pcm16")
+    for path, _ in fields:
+        os.remove(path)
+
+    # (5) the branches, trained weights, fast mode
+    det_a = Detector(Config().with_engine(upload_codec="adpcm4"))
+    det_m = Detector(Config().with_engine(upload_codec="mulaw8"))
+    x = _field_signal(60.0, sr, seed=31)
+    p24 = os.path.join(work, "wires_24bit.wav")
+    wavio.write(p24, x, sr, subtype="PCM_24")
+    a, _w, _st, la, _c = _timed_detect(det_a, p24)
+    b = det_m.detect_file_streaming(p24)
+    eq = np.array_equal(a.avg_values, b.avg_values)
+    log(f"wires branch 60 s 24-bit mono WAV under adpcm4: engines {_engine_kinds(det_a)}, "
+        f"grid bit-equal to mulaw8's={eq} (the reference runs mulaw8 here), "
+        f"launches={json.dumps(la)}")
+    if not eq or la.get("adpcm_decode", 0) or _engine_kinds(det_a) != [(16000, "mulaw8")]:
+        raise AssertionError("the 24-bit WAV under adpcm4 did not run the mulaw8 wire")
+
+    flac_ref = _flac_ref()
+    v24 = np.clip(np.rint(_field_signal(30.0, sr, seed=37) * 2 ** 23), -2 ** 23, 2 ** 23 - 1
+                  ).astype(np.int64)
+    f24, w16 = os.path.join(work, "wires_24bit.flac"), os.path.join(work, "wires_top16.wav")
+    flac_ref.write_flac(f24, v24, sr, bits=24)
+    wavio.write(w16, (v24 >> 8).astype(np.float32) / 32768.0, sr, subtype="PCM_16")
+    det_a = Detector(Config().with_engine(upload_codec="adpcm4"))
+    a, _w, _st, la, _c = _timed_detect(det_a, f24)
+    b = det_a.detect_file_streaming(w16)
+    eq = np.array_equal(a.avg_values, b.avg_values)
+    log(f"wires branch 30 s 24-bit mono FLAC under adpcm4 (top 16 bits): engines "
+        f"{_engine_kinds(det_a)}, grid bit-equal to the top-16-bit PCM16 WAV's={eq}, "
+        f"launches={json.dumps(la)}")
+    if not eq or not la.get("adpcm_decode") or _engine_kinds(det_a) != [(16000, "adpcm4")]:
+        raise AssertionError("the 24-bit FLAC under adpcm4 did not ride the adpcm4 wire")
+
+    xs = np.stack([_field_signal(30.0, 48000, seed=41), _field_signal(30.0, 48000, seed=43)], 1)
+    pf, pm = os.path.join(work, "wires_stereo.wav"), os.path.join(work, "wires_mono16.wav")
+    wavio.write(pf, xs, 48000, subtype="FLOAT")
+    mono = read_mono(pf)[0]
+    i16 = np.clip(np.rint(mono * np.float32(32768.0)), -32768, 32767).astype(np.int16)
+    wavio.write(pm, i16.astype(np.float32) / 32768.0, 48000, subtype="PCM_16")
+    det_m = Detector(Config().with_engine(upload_codec="mulaw8"))
+    a, _w, _st, la, _c = _timed_detect(det_m, pf)
+    b = det_m.detect_file_streaming(pm)
+    eq = np.array_equal(a.avg_values, b.avg_values)
+    log(f"wires branch 30 s stereo FLOAT 48 kHz WAV under mulaw8: engines "
+        f"{_engine_kinds(det_m)}, grid bit-equal to its int16 downmix as a PCM16 WAV={eq}, "
+        f"launches={json.dumps(la)}")
+    if not eq or _engine_kinds(det_m) != [(16000, "mulaw8")]:
+        raise AssertionError("the stereo FLOAT WAV under mulaw8 did not ride the mulaw8 wire")
+
+    det = Detector()
+    det.detect_file_streaming(pm)
+    log(f"wires branch upload_codec=\"auto\": engines {_engine_kinds(det)}")
+    if _engine_kinds(det) != [(48000, "i16")]:
+        raise AssertionError("upload_codec=\"auto\" did not run the exact int16 wire")
+    for p in (p24, f24, w16, pf, pm):
+        os.remove(p)
+    log(f"wires phase: {time.perf_counter() - t_phase:.1f} s | {smi}")
+    if misses:
+        raise AssertionError("wires quality off its gates: " + "; ".join(misses))
+
+
+# ---------------------------------------------------------------------------
 # slice 7: the review-and-silence workflow through the CLI, ending in silenced WAVs
 def _cli(argv, label: str, times: dict) -> tuple:
     """``softspoken_tpu_torch.cli.main(argv)`` in-process: (exit code, stdout),
@@ -1596,7 +1947,8 @@ def main() -> int:
     tc = phase_toolchain()
     k1 = phase_frame_mel(peaks)
     k2 = phase_dft_mel(peaks)
-    for rec in (k1, k2):
+    k3 = phase_adpcm(peaks, smi)
+    for rec in (k1, k2, k3):
         rec["tensor_core_instructions"] = tc[rec["name"]]
         if rec["tensor_cores"] and not rec["tensor_core_instructions"]:
             raise AssertionError(f"{rec['name']} claims the tensor cores but its SASS shows none")
@@ -1620,12 +1972,13 @@ def main() -> int:
         phase_containers(work)
         phase_determinism(wav, chunk_device_ms, smi)
         phase_trained(work, smi)
+        phase_wires(work, wav, peaks, smi, k3)
         phase_workflow(work, wav, smi)
         k1["launches_eval"] = phase_eval(work, smi)
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

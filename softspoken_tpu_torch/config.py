@@ -77,10 +77,15 @@ class EngineConfig:
     file_concurrency: int = 1
     # chunks prepared (host fill + pinned upload) ahead of the device
     readahead_chunks: int = 4
-    # PCM upload wire: "pcm16" (exact); "auto" resolves to "pcm16" here.
-    # The mulaw8 and adpcm4 wires are not ported yet.
+    # fused pipeline's PCM upload wire: "pcm16" (exact int16), "mulaw8"
+    # (8-bit mu-law, ops/mulaw.py) or "adpcm4" (4-bit IMA-ADPCM,
+    # ops/adpcm.py, decoded on the card by the CUDA kernel K3).  "auto"
+    # picks mulaw8 only on a TPU (the JAX package's policy), so here it is
+    # pcm16; any other value rides the exact wire too, as in the JAX package
     upload_codec: str = "auto"
-    # host wire decimation; only engages on the lossy wires (not ported)
+    # host decimation of the wire stream (io/decimate.py) by the largest
+    # integer M with native_sr/M >= 2*dsp.f_max (32 kHz -> 16 kHz): "auto"
+    # engages it on the lossy wires only, "off" never
     wire_decimate: str = "auto"
     # the host pipeline's streaming resampler: "host" (scipy polyphase) or
     # "device" (a polyphase GEMM per chunk on the detector's device);

@@ -2,12 +2,17 @@
 
 Per chunk the device runs
 
-    int16 PCM ─▶ ÷32768 ─▶ polyphase-matmul resample (io.resample) ─▶
+    wire ─▶ decode ─▶ polyphase-matmul resample (io.resample) ─▶
     framing + DFT + mel (ops.frame_mel, the CUDA kernel in fast mode) ─▶
     U-Net mask head per batch ─▶ overlap grid ─▶ averaged scores
 
 and the inter-chunk grid overlap (windows straddling a chunk boundary) stays
-on the device as a carry, so chunking never changes results.  The host reads
+on the device as a carry, so chunking never changes results.  The wire is
+exact int16 PCM (÷32768 on the device) or float32 by default; the lossy
+wires of ``engine.upload_codec`` are 8-bit mu-law (``ops/mulaw.py``, an
+elementwise decode) and 4-bit IMA-ADPCM (``ops/adpcm.py``, the CUDA kernel
+K3), and on them the host may first decimate the stream by an integer
+factor (``io/decimate.py``, ``engine.wire_decimate``).  The host reads
 chunk k+depth and uploads it on a side stream while the card computes chunk
 k, and fetches every chunk's grid in one transfer at the end.
 
@@ -37,12 +42,15 @@ import torch
 
 from ..io import flac, wavio
 from ..io.audio import probe, read_mono
+from ..io.decimate import WireDecimator, decim_factor
 from ..io.resample import _ratio, polyphase_apply, polyphase_block_geometry
+from ..ops import adpcm, mulaw
 from . import regions as R
 from .detector import DetectionResult, Detector, _not_ported
 from .planner import num_windows_for_padded_length, window_starts
 
 CARRY = 512  # bins of inter-chunk grid overlap (needs ≥ 256 − min bin stride)
+LOSSY = ("mulaw8", "adpcm4")
 
 
 @lru_cache(maxsize=16)
@@ -71,13 +79,14 @@ def grid_tile_period(step_seconds: float, max_p: int = 8,
 class FusedStreamingEngine:
     """Chunk program for one (native_sr, wire kind) on the detector's device.
 
-    ``kind`` is "i16" (PCM16 mono, ÷32768 on the device) or "f32" (host
-    decoded and downmixed).  Not thread-safe; ``run`` keeps its state local.
+    ``kind`` is "i16" (PCM16 mono, ÷32768 on the device), "f32" (host
+    decoded and downmixed), "mulaw8" (int8 mu-law codes) or "adpcm4" (uint8
+    IMA-ADPCM blocks).  Not thread-safe; ``run`` keeps its state local.
     """
 
     def __init__(self, detector: Detector, native_sr: int, kind: str = "i16"):
-        if kind not in ("i16", "f32"):
-            raise _not_ported(f"the {kind!r} upload wire")
+        if kind not in ("i16", "f32") + LOSSY:
+            raise ValueError(f"unknown wire kind {kind!r}")
         self.det = detector
         self.device = detector.device
         self.cfg = cfg = detector.cfg
@@ -115,7 +124,12 @@ class FusedStreamingEngine:
                 self.up, self.down, self.buf_len)
             self.width = W.shape[0]
             self.W = torch.from_numpy(W).to(self.device)
-        self._dtype = torch.float32 if kind == "f32" else torch.int16
+        # what the wire carries: mulaw8 codes are encoded straight into the
+        # staging buffer (code 0 is silence, so the zero fill still pads);
+        # adpcm4 stages int16 and block-encodes it into a shorter wire
+        self._wire_dtype = {"f32": torch.float32, "i16": torch.int16,
+                            "mulaw8": torch.int8, "adpcm4": torch.uint8}[kind]
+        self._wire_len = adpcm.wire_bytes(self.in_len) if kind == "adpcm4" else self.in_len
 
     # ------------------------------------------------------------------
     def _program(self, native: torch.Tensor, lo: int, fin: int,
@@ -124,9 +138,14 @@ class FusedStreamingEngine:
         """One chunk: native (in_len,) → (avg, cnt, carry_sum', carry_cnt'),
         avg/cnt of length glen.  ``place`` is the grid placement that
         ``_placement`` made and checked on the host."""
-        x = native.to(torch.float32)
-        if self.kind == "i16":
-            x = x * (1.0 / 32768.0)
+        if self.kind == "mulaw8":
+            x = mulaw.decode_device(native)
+        elif self.kind == "adpcm4":
+            x = adpcm.decode_device(native, self.in_len)  # K3 on the card
+        else:
+            x = native.to(torch.float32)
+            if self.kind == "i16":
+                x = x * (1.0 / 32768.0)
         if self.W is not None:
             x = polyphase_apply(x, self.W, wmin=self.wmin, pad_l=self.pad_l,
                                 n_blocks=self.n_blocks, n_copies=self.n_copies,
@@ -217,7 +236,7 @@ class FusedStreamingEngine:
                                 self.chunk_w)
         if isinstance(place, torch.Tensor):
             place = place.to(self.device)
-        native = torch.zeros(self.in_len, dtype=self._dtype, device=self.device)
+        native = torch.zeros(self._wire_len, dtype=self._wire_dtype, device=self.device)
         st = torch.from_numpy(starts.reshape(self.nb, self.B)).to(self.device)
         valid = torch.ones(self.chunk_w, dtype=torch.float32, device=self.device)
         cs = torch.zeros(CARRY, device=self.device)
@@ -245,8 +264,8 @@ class FusedStreamingEngine:
     ) -> DetectionResult:
         """Detect over a native-rate stream of ``native_frames`` samples.
 
-        ``read_native(start, frames)`` returns samples of the engine's wire
-        kind (int16 or float32 mono), clamped at EOF.  ``timers``
+        ``read_native(start, frames)`` returns mono samples, clamped at EOF:
+        float32 for the "f32" wire, int16 for every other.  ``timers``
         (runtime.metrics.StageTimers) collects host_fill / device_put on the
         read-ahead threads and wait_prepare / dispatch / final_fetch here.
         """
@@ -269,13 +288,21 @@ class FusedStreamingEngine:
             raise RuntimeError(f"grid tile period {p} violated by the window offsets "
                                f"of {n_windows} windows")
 
+        if self.kind == "mulaw8":
+            def put(got: np.ndarray, dst: np.ndarray) -> None:
+                mulaw.encode_i16(got, out=dst)
+        else:
+            def put(got: np.ndarray, dst: np.ndarray) -> None:
+                dst[:] = got
+
         def read_padded(start: int, frames: int, out: np.ndarray) -> None:
-            """Native padded-stream samples [start, start+frames) into out."""
+            """Native padded-stream samples [start, start+frames) into out
+            (as mu-law codes on the mulaw8 wire)."""
             a0 = max(start, pad_native)
             a1 = min(start + frames, pad_native + native_frames)
             if a1 > a0:
                 got = read_native(a0 - pad_native, a1 - a0)
-                out[a0 - start: a0 - start + len(got)] = got
+                put(got, out[a0 - start: a0 - start + len(got)])
 
         n_chunks = -(-n_windows // self.chunk_w)
 
@@ -292,8 +319,11 @@ class FusedStreamingEngine:
                          if ci + 1 < n_chunks else covered)
             fin = min(next_base, covered) - base
 
-            staging_t = torch.zeros(self.in_len, dtype=self._dtype, pin_memory=cuda)
-            staging = staging_t.numpy()
+            if self.kind == "adpcm4":
+                staging = np.zeros(self.in_len, np.int16)
+            else:
+                staging_t = torch.zeros(self.in_len, dtype=self._wire_dtype, pin_memory=cuda)
+                staging = staging_t.numpy()
             if self.W is None:
                 lo = 0
                 read_padded(s0, min(self.in_len, n_nat_padded - s0), staging)
@@ -310,6 +340,10 @@ class FusedStreamingEngine:
                 re = min(n_nat_padded, rs + self.in_len - self.pad_l)
                 off = self.pad_l - left
                 read_padded(rs - left, re - (rs - left), staging[off:])
+            if self.kind == "adpcm4":
+                # one encode pass of the whole staging buffer into the wire
+                staging_t = torch.zeros(self._wire_len, dtype=torch.uint8, pin_memory=cuda)
+                adpcm.encode_i16(staging, out=staging_t.numpy())
 
             n = w1 - w0
             starts_l = np.zeros(self.chunk_w, np.int32)
@@ -407,13 +441,51 @@ def get_fused_engine(detector: Detector, native_sr: int, kind: str) -> FusedStre
     return eng
 
 
-def _wire_kind(detector: Detector) -> str:
-    """Upload wire for a 16-bit source; "auto" and "pcm16" are the exact
-    int16 wire (the lossy mu-law and ADPCM wires are a later slice)."""
+def _i16_kind(detector: Detector) -> str:
+    """Wire kind for a 16-bit PCM source: exact int16, or a lossy wire.
+
+    As the JAX package's: "auto" picks mulaw8 only on a TPU in fast mode,
+    so here it is the exact int16 wire; any codec other than "mulaw8" and
+    "adpcm4" ("bfp4" included) also rides the exact int16 wire, silently.
+    """
     codec = detector.cfg.engine.upload_codec
-    if codec not in ("auto", "pcm16"):
-        raise _not_ported(f"upload_codec={codec!r}")
-    return "i16"
+    return codec if codec in LOSSY else "i16"
+
+
+def _maybe_wire_decimate(detector: Detector, read_fn, frames: int, sr: int, kind: str):
+    """Wrap an int16 reader in the wire decimator where it cannot matter:
+    only on a lossy wire with ``engine.wire_decimate="auto"``, and only when
+    the native rate has an integer factor M with sr/M >= 2*dsp.f_max (the
+    mel filterbank sees nothing above f_max).  Returns the ``(read_fn,
+    frames, sr)`` the engine runs at."""
+    cfg = detector.cfg
+    if kind not in LOSSY or cfg.engine.wire_decimate != "auto":
+        return read_fn, frames, sr
+    M = decim_factor(sr, cfg.dsp.f_max)
+    if M == 1:
+        return read_fn, frames, sr
+    d = WireDecimator(read_fn, frames, sr, M, f_max=cfg.dsp.f_max)
+    return d.read, d.frames, d.sr
+
+
+def _run_mono_f32_source(detector: Detector, read_f32, frames: int, sr: int,
+                         progress, timers=None) -> DetectionResult:
+    """The fused engine over a mono float32 range reader (the host-decoded
+    formats): on a lossy wire the samples are rounded to int16 first
+    (≤3e-5 full scale, inside the codec's own quantization); exact wires
+    keep float32."""
+    kind = _i16_kind(detector)
+    if kind in LOSSY:
+        def read_i16(start: int, n: int) -> np.ndarray:
+            data = read_f32(start, n)
+            return np.clip(np.rint(data * np.float32(32768.0)), -32768, 32767
+                           ).astype(np.int16)
+
+        rd, nfr, wire_sr = _maybe_wire_decimate(detector, read_i16, frames, sr, kind)
+        engine = get_fused_engine(detector, wire_sr, kind)
+        return engine.run(rd, nfr, progress, timers=timers)
+    engine = get_fused_engine(detector, sr, "f32")
+    return engine.run(read_f32, frames, progress, timers=timers)
 
 
 def detect_file_fused(
@@ -422,24 +494,34 @@ def detect_file_fused(
     journal_dir: Optional[str] = None, timers=None,
 ) -> DetectionResult:
     """Whole-file detection through the fused device pipeline, with the JAX
-    package's dispatch on ``io.audio.probe`` over the exact wires:
+    package's dispatch on ``io.audio.probe``:
 
       * mono FLAC of ≤16 bits streams int16 (a b-bit sample shifted to 16
-        bits, ÷32768 on the device, equals the float path's v/2^(b−1));
+        bits, ÷32768 on the device, equals the float path's v/2^(b−1)); on a
+        lossy wire a deeper mono FLAC streams its top 16 bits too;
       * any other FLAC decodes and downmixes on its sequential reader;
       * mono PCM16 WAV streams its raw int16 from one persistent handle;
+      * on a lossy wire, mono PCM_24/PCM_32/PCM_U8 WAV streams its top 16
+        bits on the mulaw8 wire, whatever the codec (as the JAX package
+        does, ``adpcm4`` included);
       * every other readable format is decoded and downmixed on the host
-        (``read_mono``) and rides the float32 wire.
+        (``read_mono``) and rides the float32 wire, or a lossy wire as
+        int16.
+
+    Each int16 stream on a lossy wire goes through ``_maybe_wire_decimate``.
     """
     if journal_dir or detector.cfg.engine.chunk_checkpoint_every > 0:
         raise _not_ported("chunk journaling (engine.chunk_checkpoint_every)")
-    kind = _wire_kind(detector)
+    kind = _i16_kind(detector)
     inf = probe(path)
     if inf.subtype.startswith("FLAC"):
-        if inf.channels == 1 and inf.bits_per_sample <= 16:
-            with flac.SequentialMonoReader(path, dtype="i16") as smr:
-                engine = get_fused_engine(detector, inf.samplerate, kind)
-                return engine.run(smr.read, inf.frames, progress, timers=timers)
+        if inf.channels == 1 and (inf.bits_per_sample <= 16 or kind in LOSSY):
+            with flac.SequentialMonoReader(
+                    path, dtype="i16", truncate_to_i16=inf.bits_per_sample > 16) as smr:
+                rd, nfr, sr = _maybe_wire_decimate(
+                    detector, smr.read, inf.frames, inf.samplerate, kind)
+                engine = get_fused_engine(detector, sr, kind)
+                return engine.run(rd, nfr, progress, timers=timers)
         with flac.SequentialMonoReader(path) as smr:
             engine = get_fused_engine(detector, inf.samplerate, "f32")
             return engine.run(smr.read, inf.frames, progress, timers=timers)
@@ -450,11 +532,26 @@ def detect_file_fused(
                 reader.will_need(start + frames, frames)  # prefetch the next chunk
                 return reader.read_raw(start, frames).view("<i2")
 
-            engine = get_fused_engine(detector, inf.samplerate, kind)
-            return engine.run(read_native, inf.frames, progress, timers=timers)
+            rd, nfr, sr = _maybe_wire_decimate(
+                detector, read_native, inf.frames, inf.samplerate, kind)
+            engine = get_fused_engine(detector, sr, kind)
+            return engine.run(rd, nfr, progress, timers=timers)
+
+    if (isinstance(inf, wavio.WavInfo) and inf.channels == 1
+            and inf.subtype in ("PCM_24", "PCM_32", "PCM_U8") and kind in LOSSY):
+        # the reference's wire for these: mulaw8 under either lossy codec
+        with wavio.RawReader(path) as reader:
+            def read_top16(start: int, frames: int) -> np.ndarray:
+                reader.will_need(start + frames, frames)
+                return wavio.top16_from_raw(reader.read_raw(start, frames), inf.subtype)
+
+            rd, nfr, sr = _maybe_wire_decimate(
+                detector, read_top16, inf.frames, inf.samplerate, "mulaw8")
+            engine = get_fused_engine(detector, sr, "mulaw8")
+            return engine.run(rd, nfr, progress, timers=timers)
 
     def read_f32(start: int, frames: int) -> np.ndarray:
         return read_mono(path, start=start, frames=frames)[0]
 
-    engine = get_fused_engine(detector, inf.samplerate, "f32")
-    return engine.run(read_f32, inf.frames, progress, timers=timers)
+    return _run_mono_f32_source(detector, read_f32, inf.frames, inf.samplerate,
+                                progress, timers=timers)

@@ -1,8 +1,8 @@
 """Self-contained RIFF/WAVE codec (numpy only).
 
-A copy of the JAX package's ``io/wavio.py`` (readers, ``write`` in every
-subtype and the streaming ``WavWriter`` that promotes to RF64), without
-``top16_from_raw``, the lossy mu-law wire's piece of a later slice.
+A copy of the JAX package's ``io/wavio.py``: readers, ``write`` in every
+subtype, the streaming ``WavWriter`` that promotes to RF64, and
+``top16_from_raw`` for the lossy upload wires.
 It stands in for the reference's ``soundfile``/``librosa`` reads
 (``voice_activity.py:23-143``).
 
@@ -364,6 +364,27 @@ def _decode_wide_int(raw: np.ndarray, k: int, en: str) -> np.ndarray:
         v |= b[:, i].astype(np.uint64) << np.uint64(8 * (7 - i))
     return (v.view(np.int64).astype(np.float64) / float(1 << 63)).astype(
         np.float32)
+
+
+def top16_from_raw(raw: np.ndarray, subtype: str) -> np.ndarray:
+    """Top 16 bits of mono integer-PCM sample bytes, as int16.
+
+    For the fused engine's lossy wires (``engine/fused.py``): a 24/32-bit
+    sample's low bits lie far below the compander's quantization step, so
+    the host stages int16 without a float detour.  PCM_24/PCM_32 keep the
+    top 16 bits (truncation toward −inf, ≤1 int16 LSB ≈ 3e-5 full scale;
+    the finest mu-law step is ~1.7e-4); PCM_U8 converts exactly
+    ((v−128)·256).  Not for exact paths.
+    """
+    if subtype == "PCM_24":
+        b = raw.reshape(-1, 3)
+        return np.ascontiguousarray(b[:, 1:3]).view("<i2")[:, 0]
+    if subtype == "PCM_32":
+        b = raw.reshape(-1, 4)
+        return np.ascontiguousarray(b[:, 2:4]).view("<i2")[:, 0]
+    if subtype == "PCM_U8":
+        return ((raw.view(np.uint8).astype(np.int16) - 128) * 256).astype(np.int16)
+    raise WavFormatError(f"top16_from_raw: unsupported subtype {subtype}")
 
 
 # ---------------------------------------------------------------------------

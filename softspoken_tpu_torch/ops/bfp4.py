@@ -1,16 +1,18 @@
-"""4-bit block-floating-point codec, host half.
+"""4-bit block-floating-point codec.
 
-A copy of the JAX package's ``ops/bfp4.py`` host functions.  Samples are
+A copy of the JAX package's ``ops/bfp4.py``.  Samples are
 grouped into blocks of ``BLOCK``; each block is scaled by its peak
 magnitude and quantized to 15 uniform levels (4-bit signed, two codes per
 byte) with one int16 scale per block.  The JAX package measured it as a
 wire and rejected it (out-of-family event F1 collapses), so it lives on
-only as the degradation grid's ``bfp4`` condition (``train/degrade.py``).
+as the degradation grid's ``bfp4`` condition (``train/degrade.py``);
+``decode_device`` keeps the module whole and lies on no path.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 BLOCK = 256          # samples per scale block
 QMAX = 7             # 4-bit signed codes in [-7, 7] (15 levels, mid-tread)
@@ -60,3 +62,18 @@ def roundtrip_i16(x: np.ndarray) -> np.ndarray:
     """int16 -> codec round trip -> float32 (for the degradation grid)."""
     packed, scales = encode_i16(x)
     return decode_host(packed, scales, len(x))
+
+
+def decode_device(packed: torch.Tensor, scales: torch.Tensor, n: int) -> torch.Tensor:
+    """(ceil(n/2),) int8 codes + (nb,) int16 scales -> (n,) float32 on their
+    device (plain torch shifts and products)."""
+    b = packed.to(torch.int32)
+    lo = ((b & 0xF) ^ 8) - 8
+    # mask AFTER the shift: the wire bytes are signed int8, so >> 4 of a
+    # negative byte fills the high bits with ones
+    hi = (((b >> 4) & 0xF) ^ 8) - 8
+    q = torch.stack([lo, hi], dim=1).reshape(-1)       # interleave
+    nb = scales.shape[0]
+    vals = q[: nb * BLOCK].reshape(nb, BLOCK).to(torch.float32)
+    vals = vals * (scales.to(torch.float32)[:, None] * (1.0 / (QMAX * 32768.0)))
+    return vals.reshape(-1)[:n]

@@ -1,15 +1,19 @@
-"""8-bit mu-law compander, host half.
+"""8-bit mu-law compander: the mulaw8 upload wire and the ``mulaw``
+degradation.
 
-A copy of the JAX package's ``ops/mulaw.py`` host functions: the 64 Ki
-entry encode table (int16 bit pattern -> int8 code), the encode gather and
-the numpy reference decode.  The degradation grid's ``mulaw`` condition
-(``train/degrade.py``) runs a recording through them.  The device decode
-belongs to the mu-law upload wire, which is not ported yet (ROADMAP.md).
+A copy of the JAX package's ``ops/mulaw.py``: the 64 Ki entry encode table
+(int16 bit pattern -> int8 code), the encode gather (the native
+``ss_mulaw_encode_i16`` loop of ``io/native.py`` when it is built, else
+numpy; both read the same table), the device decode and the numpy
+reference decode.  The fused engine's mulaw8 wire encodes on the host and
+decodes with ``decode_device`` on the detector's device, in place of the
+int16 ``x / 32768`` scale.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 MU = 255.0
 _LOG1P_MU = float(np.log1p(MU))
@@ -33,12 +37,33 @@ def encode_lut() -> np.ndarray:
     return _ENC_LUT
 
 
-def encode_i16(x: np.ndarray) -> np.ndarray:
-    """int16 PCM -> int8 mu-law codes (one table gather; 0 encodes to 0)."""
+def encode_i16(x: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """int16 PCM -> int8 mu-law codes (one table gather; 0 encodes to 0).
+
+    ``out`` (a contiguous int8 buffer of length ``len(x)``) lets the fused
+    engine encode straight into its staging buffer.
+    """
     # not `assert`: a wrong dtype would compand garbage under `python -O`
     if x.dtype != np.int16:
         raise TypeError(f"encode_i16 requires int16 PCM, got {x.dtype}")
-    return encode_lut()[x.view(np.uint16)]
+    lut = encode_lut()
+    from ..io.native import mulaw_encode_i16
+
+    q = mulaw_encode_i16(x, lut, out=out)
+    if q is not None:
+        return q
+    if out is not None:
+        np.take(lut, x.view(np.uint16), out=out)
+        return out
+    return lut[x.view(np.uint16)]
+
+
+def decode_device(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes -> float32 in [-1, 1] on ``q``'s device: the JAX
+    ``decode_device`` formula in float32 (sign, abs, expm1, products).
+    Plain torch: elementwise work that the JAX package left to XLA."""
+    y = q.to(torch.float32) * (1.0 / 127.0)
+    return torch.sign(y) * (torch.expm1(torch.abs(y) * _LOG1P_MU) * (1.0 / MU))
 
 
 def decode_host(q: np.ndarray) -> np.ndarray:

@@ -262,3 +262,40 @@ def test_eval_on_the_card_matches_the_cpu(tmp_path):
     cpu = E.evaluate_detector(Detector(Config(), device="cpu"), labeled)
     assert abs(card["frame"]["f1"] - cpu["frame"]["f1"]) <= 0.01
     assert card["frame"]["f1"] > 0.8
+
+
+@pytest.mark.parametrize("n_samples", [2_498_976, 2_498_976 - 160, 256 * 37 + 5],
+                         ids=["chunk", "whole-blocks", "short-tail"])
+def test_adpcm_kernel_is_bit_equal_to_plain_version(n_samples):
+    """K3 on the wire of a default chunk at the 16 kHz decimated rate
+    (2,498,976 samples, 160 past a whole block) of random bytes with header
+    indices 0..255, on whole blocks, and on a short tail: the same integers
+    and one exact scale, so equal bits."""
+    _need_card()
+    from softspoken_tpu_torch.ops import adpcm
+
+    nb = adpcm.n_blocks(n_samples)
+    rng = np.random.default_rng(n_samples)
+    w = rng.integers(0, 256, nb * adpcm.BLOCK_BYTES).astype(np.uint8).reshape(nb, -1)
+    w[:2, 0:2] = [[0x00, 0x80], [0xFF, 0x7F]]        # seeds -32768 and 32767
+    w[0, adpcm.HDR_BYTES:], w[1, adpcm.HDR_BYTES:] = 0xFF, 0x77
+    wire = torch.from_numpy(w.reshape(-1)).cuda()
+    before = KERNEL_LAUNCHES[adpcm.NAME]
+    got = adpcm.decode_device(wire, n_samples)
+    torch.cuda.synchronize()
+    assert KERNEL_LAUNCHES[adpcm.NAME] == before + 1
+    assert got.shape == (n_samples,) and got.dtype == torch.float32
+    ref = adpcm.decode_device_ref(wire, n_samples)
+    assert torch.equal(got, ref)
+    np.testing.assert_array_equal(got[: 37 * 256].cpu().numpy(),
+                                  adpcm.decode_device_ref(wire[: 37 * adpcm.BLOCK_BYTES].cpu(),
+                                                          37 * 256).numpy())
+
+
+def test_adpcm_wrapper_rejects_a_misaligned_wire():
+    _need_card()
+    from softspoken_tpu_torch.ops import adpcm
+
+    wire = torch.zeros(2 * adpcm.BLOCK_BYTES + 1, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError):
+        adpcm.decode_device(wire[1:], 10)

@@ -141,9 +141,7 @@ def test_cli_fails_on_an_unreadable_file(tmp_path):
     assert rc == 1
 
 
-@pytest.mark.parametrize("eng", [
-    dict(upload_codec="mulaw8"), dict(chunk_checkpoint_every=2),
-], ids=["mulaw8-wire", "journal"])
+@pytest.mark.parametrize("eng", [dict(chunk_checkpoint_every=2)], ids=["journal"])
 def test_later_slices_raise(tmp_path, eng):
     p = _wav(tmp_path, 22050, 1.0)
     with pytest.raises(NotImplementedError):
