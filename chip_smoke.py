@@ -91,8 +91,18 @@ Phases:
      wire), a 24-bit mono FLAC under adpcm4 bit-equal to its top 16 bits as
      a PCM16 WAV, a stereo FLOAT WAV under mulaw8 bit-equal to its int16
      downmix, and "auto" on the int16 engine.
+ 10. slice 10, after ``eval``: journal — the 30-minute WAV (12 chunks),
+     trained, fused fast: warm audio-s/wall-s with no journal and a save
+     every 1 and 4 chunks (grids bit-equal), killed after 5 chunks and
+     resumed (7 programs, grid and intervals bit-equal, sidecar cleared,
+     the resume's wall time), and a journal the CPU wrote discarded on the
+     card; concurrency — eight 5-minute WAVs and eight copies of a 120 s
+     FLAC through ``DetectRunner`` at file_concurrency 1, 2, 4, three
+     turns (CSV byte-identical to K = 1's, aggregate rates); doctor — the
+     port's report, ``device`` and ``kernels`` ok.
 Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
-over phase 8), the nvidia-smi line, and as the last
+over phase 8; ``launches_journal``: in phase 10's journaled run), the
+nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
 """
@@ -1036,7 +1046,7 @@ def phase_native(wav: str, smi: str) -> None:
         raise AssertionError("the native resampler was not used or disagrees with scipy")
 
 
-def _timed_detect(det, path: str) -> tuple:
+def _timed_detect(det, path: str, journal_dir=None) -> tuple:
     """(result, wall seconds, stage timers, K1/K2 launches, native calls) of
     one ``detect_file_streaming``, the counts set to 0 just before."""
     from softspoken_tpu_torch.io import native
@@ -1048,7 +1058,7 @@ def _timed_detect(det, path: str) -> tuple:
     native.reset_call_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = det.detect_file_streaming(path, timers=timers)
+    res = det.detect_file_streaming(path, journal_dir=journal_dir, timers=timers)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, wall, timers.summary(), dict(KERNEL_LAUNCHES), dict(native.NATIVE_CALLS)
@@ -1929,6 +1939,201 @@ def phase_eval(work: str, smi: str) -> int:
     return KERNEL_LAUNCHES["frame_mel"]
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the chunk journal, file concurrency, doctor
+def _count_programs(engine, kill_after=None):
+    """Wraps ``engine._program``: returns the call list; raises after
+    ``kill_after`` calls.  ``del engine._program`` unwraps it."""
+    program, calls = type(engine)._program.__get__(engine), []
+
+    def wrapped(*a, **k):
+        if kill_after is not None and len(calls) >= kill_after:
+            raise RuntimeError("simulated preemption")
+        calls.append(1)
+        return program(*a, **k)
+
+    engine._program = wrapped
+    return calls
+
+
+def phase_journal(work: str, wav: str, smi: str) -> int:
+    """The 30-minute WAV (12 chunks) with the trained weights, fused fast
+    mode: warm rates without a journal and with a save every 1 and 4
+    chunks; killed after 5 chunks and resumed: 7 programs, the grid and
+    intervals bit-equal, the sidecar cleared.  A journal that the CPU wrote
+    is discarded on the card.  Returns K1's launches in the journaled run."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+
+    t_phase = time.perf_counter()
+    jd = os.path.join(work, "journal")
+    shutil.rmtree(jd, ignore_errors=True)
+    rates, results, k1 = {}, {}, 0
+    for every in (0, 1, 4) * 3:  # three turns
+        det = Detector(Config().with_engine(chunk_checkpoint_every=every))
+        det.detect_file_streaming(wav, journal_dir=jd if every else None)  # warm
+        res, wall, stages, launches, _c = _timed_detect(det, wav, jd if every else None)
+        rates.setdefault(every, []).append(1800.0 / wall)
+        results[every] = res
+        if every == 1:
+            k1 = launches.get("frame_mel", 0)
+        log(f"journal every={every}: audio_sec_per_wall_sec={rates[every][-1]:.2f} "
+            f"wall_s={wall:.4f} checkpoint_s={stages.get('checkpoint', 0.0):.4f} "
+            f"final_fetch_s={stages.get('final_fetch', 0.0):.4f} "
+            f"launches={json.dumps(launches)} | {smi}")
+        if os.path.isdir(jd) and os.listdir(jd):
+            raise AssertionError("a finished run left its journal behind")
+    log("journal medians (range): " + "; ".join(
+        f"every={e} {np.median(r):.2f} ({min(r):.2f}-{max(r):.2f}), "
+        f"{np.median(r) / np.median(rates[0]):.2f}x none" for e, r in rates.items())
+        + f" | {smi}")
+    base = results[0]
+    for every in (1, 4):
+        if not (np.array_equal(results[every].avg_values, base.avg_values)
+                and results[every].intervals == base.intervals):
+            raise AssertionError(f"the journaled run (every={every}) changed the grid")
+    det = Detector(Config().with_engine(chunk_checkpoint_every=1))
+    engine = get_fused_engine(det, 32000, "i16")
+    n_chunks = -(-base.num_windows // engine.chunk_w)
+    if n_chunks != 12:
+        raise AssertionError(f"the 30-minute WAV has {n_chunks} chunks, not 12")
+    _count_programs(engine, kill_after=5)
+    try:
+        det.detect_file_streaming(wav, journal_dir=jd)
+        raise AssertionError("the killed run did not stop")
+    except RuntimeError as e:
+        if "simulated preemption" not in str(e):
+            raise
+    finally:
+        del engine._program
+    sidecars = os.listdir(jd)
+    calls = _count_programs(engine)
+    try:
+        res, wall, stages, _l, _c = _timed_detect(det, wav, jd)
+    finally:
+        del engine._program
+    eq = np.array_equal(res.avg_values, base.avg_values) and res.intervals == base.intervals
+    log(f"journal resume: sidecar after the kill {sidecars}; programs on resume "
+        f"{len(calls)} of {n_chunks} (expect 7); grid and intervals bit-equal={eq}; "
+        f"resumed wall_s={wall:.4f} (uninterrupted, median: "
+        f"{1800.0 / np.median(rates[1]):.4f} with the journal, "
+        f"{1800.0 / np.median(rates[0]):.4f} without); "
+        f"left after success {os.listdir(jd)} | {smi}")
+    if len(sidecars) != 1 or len(calls) != 7 or not eq or os.listdir(jd):
+        raise AssertionError("the journaled resume on the card is not the uninterrupted run")
+    # a journal the CPU wrote: same weights and knobs, device "cpu"
+    eng = dict(precision="parity", device_batch=8, chunk_seconds=6.0, pipeline="fused",
+               chunk_checkpoint_every=1)
+    short = os.path.join(work, "journal_cpu.wav")
+    _field_wav(short, 20.0, 32000, seed=41)
+    cpu = Detector(Config().with_engine(**eng), device="cpu")
+    cpu_engine = get_fused_engine(cpu, 32000, "i16")
+    _count_programs(cpu_engine, kill_after=1)
+    try:
+        cpu.detect_file_streaming(short, journal_dir=jd)
+        raise AssertionError("the killed CPU run did not stop")
+    except RuntimeError as e:
+        if "simulated preemption" not in str(e):
+            raise
+    finally:
+        del cpu_engine._program
+    written = os.listdir(jd)
+    card = Detector(Config().with_engine(**eng))
+    card_engine = get_fused_engine(card, 32000, "i16")
+    calls = _count_programs(card_engine)
+    try:
+        res = card.detect_file_streaming(short, journal_dir=jd)
+    finally:
+        del card_engine._program
+    n_short = -(-res.num_windows // card_engine.chunk_w)
+    log(f"journal across devices: the CPU left {written}; the card ran {len(calls)} of "
+        f"{n_short} programs (all: not resumed), left {os.listdir(jd)}")
+    if len(written) != 1 or len(calls) != n_short or os.listdir(jd):
+        raise AssertionError("the card resumed a journal that the CPU wrote")
+    os.remove(short)
+    log(f"journal phase: {time.perf_counter() - t_phase:.1f} s")
+    return k1
+
+
+def phase_concurrency(work: str, smi: str) -> None:
+    """``DetectRunner`` with the trained weights at file_concurrency K = 1,
+    2, 4 on two traffics: eight 5-minute 32 kHz WAVs (seeds 51-58; the
+    card-bound warm fused path) and eight copies of one 120 s 32 kHz FLAC
+    (the host-bound path: one decoder thread a file).  Three turns of K = 1,
+    2, 4 each: every CSV byte-identical to K = 1's (file names aside), and
+    the aggregate audio-s/wall-s of each run with each K's median and
+    range."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.project import DetectionStore
+    from softspoken_tpu_torch.runtime import DetectRunner
+
+    t_phase = time.perf_counter()
+    work = os.path.join(work, "concurrency")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    wavs = [os.path.join(work, f"conc_{s}.wav") for s in range(51, 59)]
+    for s, p in enumerate(wavs, start=51):
+        _field_wav(p, 300.0, 32000, seed=s)
+    x16 = np.clip(np.rint(_field_signal(120.0, 32000, seed=59) * 32768), -32768, 32767
+                  ).astype(np.int16)
+    flacs = [os.path.join(work, f"conc_{i}.flac") for i in range(8)]
+    _flac_ref().write_flac(flacs[0], x16, 32000, bits=16)
+    for p in flacs[1:]:
+        shutil.copyfile(flacs[0], p)
+    del x16
+    wavio.write(os.path.join(work, "warm.wav"), np.zeros(32000 * 20, np.float32), 32000,
+                subtype="PCM_16")
+    for traffic, paths, seconds in (("wav", wavs, 8 * 300.0), ("flac", flacs, 8 * 120.0)):
+        ref, rates = None, {}
+        for rep_i in range(3):
+            for k in (1, 2, 4):
+                cfg = Config().with_engine(file_concurrency=k)
+                det = Detector(cfg)
+                det.detect_file_streaming(os.path.join(work, "warm.wav"))  # warm
+                csv_path = os.path.join(work, f"{traffic}_k{k}_{rep_i}.csv")
+                rep = DetectRunner(det, DetectionStore(csv_path), cfg).run(paths)
+                if rep.errors or rep.files_done != len(paths):
+                    raise AssertionError(f"concurrency {traffic} K={k}: files done "
+                                         f"{rep.files_done}, errors {rep.errors}")
+                with open(csv_path, "rb") as f:
+                    got = f.read()
+                ref = got if ref is None else ref
+                wall = rep.throughput["wall_seconds"]
+                rates.setdefault(k, []).append(seconds / wall)
+                log(f"concurrency {traffic} K={k} run {rep_i}: aggregate "
+                    f"audio_sec_per_wall_sec={rates[k][-1]:.2f} wall_s={wall:.4f} "
+                    f"csv bytes={len(got)} equal to K=1's={got == ref} | {smi}")
+                if got != ref:
+                    raise AssertionError(f"{traffic} file_concurrency={k} wrote another "
+                                         "CSV than K=1")
+        log(f"concurrency {traffic} medians (range): " + "; ".join(
+            f"K={k} {np.median(r):.2f} ({min(r):.2f}-{max(r):.2f}), "
+            f"{np.median(r) / np.median(rates[1]):.2f}x K=1" for k, r in rates.items())
+            + f" | {smi}")
+    shutil.rmtree(work)
+    log(f"concurrency phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_doctor() -> None:
+    """The port's ``doctor``: ``device`` and ``kernels`` must be ok."""
+    import contextlib
+    import io
+
+    from softspoken_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["doctor", "--device-timeout", "300"])
+    report = json.loads(buf.getvalue())
+    log("doctor:", json.dumps({k: report[k] for k in ("device", "kernels", "summary")}),
+        "exit", rc)
+    if rc != 0 or report["device"]["status"] != "ok" or report["kernels"]["status"] != "ok":
+        raise AssertionError("doctor reports the card or the kernels as failed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
@@ -1975,6 +2180,9 @@ def main() -> int:
         phase_wires(work, wav, peaks, smi, k3)
         phase_workflow(work, wav, smi)
         k1["launches_eval"] = phase_eval(work, smi)
+        k1["launches_journal"] = phase_journal(work, wav, smi)
+        phase_concurrency(work, smi)
+        phase_doctor()
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

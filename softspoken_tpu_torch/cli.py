@@ -1,6 +1,7 @@
 """Command line: the detect-review-silence workflow and the trainer.
 
-    python -m softspoken_tpu_torch [--project-dir P] [--config c.json] <command>
+    python -m softspoken_tpu_torch [--project-dir P] [--config c.json]
+                                   [-v] [--log-json] <command>
 
   project new|list|status|add-files|remove-files
   detect        — voice detection over a project (or ad-hoc ``--files``)
@@ -10,6 +11,8 @@
   train         — ``train --synthetic --steps N --out model.pth``
   eval          — F1 of the detector on labeled audio (``--make-synthetic
                   DIR`` synthesizes a labeled eval set first)
+  doctor        — one JSON report of the environment: the card, the
+                  kernels' build, the native libraries, the checkpoint
 
 The JAX package's commands and flags.  ``detect`` and ``eval`` run on the
 CUDA card by default (``--device cpu`` to run on the CPU), with the trained
@@ -20,7 +23,9 @@ and SPHERE; ``detect`` records an MP3, Ogg Vorbis or Opus file as an error
 naming its format.  The pipeline, mel kernel and
 resampler are chosen in the ``--config`` JSON (``{"engine": {"pipeline":
 "host", "mel_kernel": "pallas"}}``).  ``detect`` and ``silence`` print a
-JSON report and exit nonzero when any file failed.
+JSON report and exit nonzero when any file failed; ``doctor`` exits nonzero
+when a probe failed.  ``detect --mesh/--distributed`` (multi-GPU) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import json
 import logging
 import os
 import sys
+import time
 from typing import Dict, List, Optional
 
 from .config import Config
@@ -59,6 +65,10 @@ def _load_config(args) -> Config:
             music_filter=postfilter.DEFAULT_THRESHOLD if thr < 0 else thr)
     if getattr(args, "strict_reference", False):
         cfg = cfg.with_engine(skip_processed_files=False)
+    if getattr(args, "chunk_checkpoint", None):
+        cfg = cfg.with_engine(chunk_checkpoint_every=args.chunk_checkpoint)
+    if getattr(args, "file_concurrency", None):
+        cfg = cfg.with_engine(file_concurrency=args.file_concurrency)
     return cfg
 
 
@@ -138,6 +148,15 @@ def cmd_detect(args) -> Dict:
     from .project import DetectionStore
     from .runtime import DetectRunner, RunCallbacks
 
+    multi = [f for f, v in (("--mesh", args.mesh), ("--distributed", args.distributed),
+                            ("--coordinator", args.coordinator),
+                            ("--num-processes", args.num_processes),
+                            ("--process-id", args.process_id)) if v is not None and v is not False]
+    if multi:
+        raise NotImplementedError(
+            f"detect {'/'.join(multi)} (multi-GPU: parallel/mesh.py and "
+            "parallel/distributed.py) is not ported to softspoken_tpu_torch yet "
+            "(ROADMAP.md §1, multi-GPU)")
     cfg = _load_config(args)
     sd = fixture_state_dict(seed=0) if args.random_init else None
     det = Detector(cfg, state_dict=sd, checkpoint_path=args.checkpoint, device=args.device)
@@ -504,20 +523,127 @@ def _add_train_parser(sub) -> None:
     pt.set_defaults(func=cmd_train)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="softspoken_tpu_torch", description=__doc__,
-                                formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--config", help="JSON config file overriding defaults")
-    p.add_argument("--project-dir", help="projects root (default ./projects)")
-    sub = p.add_subparsers(dest="command", required=True)
+# ---------------------------------------------------------------------------
+# doctor
+# ---------------------------------------------------------------------------
 
-    pp = sub.add_parser("project", help="manage projects")
-    pp.add_argument("action", choices=["new", "list", "status", "add-files",
-                                       "remove-files", "merge-detections"])
-    pp.add_argument("name", nargs="?", help="project name")
-    pp.add_argument("files", nargs="*", help="audio files (new/add-files/remove-files)")
-    pp.set_defaults(func=cmd_project)
+def _probe_device() -> dict:
+    """The card's name and capability, and one tiny launch read back."""
+    import torch
 
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (softspoken_tpu_torch runs on the card)")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = (torch.arange(4, device=dev) + 1).cpu().tolist()
+    if got != [1, 2, 3, 4]:
+        raise RuntimeError(f"a launch on the card returned {got}")
+    return {"name": torch.cuda.get_device_name(dev),
+            "capability": ".".join(map(str, torch.cuda.get_device_capability(dev))),
+            "count": torch.cuda.device_count()}
+
+
+def _probe_kernels() -> dict:
+    """Build (one nvcc per source, started together) and load K1, K2 and
+    K3 through ops/_build.py, binding each entry point."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .ops import _build, adpcm, dft_mel, frame_mel
+
+    mods = (frame_mel, dft_mel, adpcm)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        paths = list(ex.map(_build.build, [m.NAME for m in mods]))
+    build_s = time.perf_counter() - t0
+    for m in mods:
+        m._lib()
+    return {"built": {m.NAME: os.path.basename(p) for m, p in zip(mods, paths)},
+            "build_s": round(build_s, 2)}
+
+
+def cmd_doctor(args) -> int:
+    """Environment diagnosis as one JSON report, every probe bounded.
+
+    The device probes run on watchdog threads (``--device-timeout``), so a
+    hung CUDA runtime still gives a report.  A missing card or a kernel
+    that does not build is an ERROR status and a nonzero exit code, never a
+    quiet switch to the CPU.  The MP3, Ogg Vorbis and Opus readers are not ported:
+    those keys say so, with whether the system library loads.
+    """
+    import ctypes
+    import threading
+
+    cfg = _load_config(args)
+    report: dict = {}
+
+    def bounded(name, fn, timeout):
+        box = {}
+
+        def work():
+            try:
+                box["value"] = fn()
+            except Exception as e:  # noqa: BLE001 — diagnosis, not control
+                box["error"] = f"{type(e).__name__}: {e}"
+
+        th = threading.Thread(target=work, daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        th.join(timeout)
+        if th.is_alive():
+            report[name] = {"status": "TIMEOUT", "after_s": round(timeout, 1)}
+            return None
+        dt = round(time.perf_counter() - t0, 2)
+        if "error" in box:
+            report[name] = {"status": "ERROR", "error": box["error"], "s": dt}
+            return None
+        report[name] = {"status": "ok", "s": dt, **box["value"]}
+        return box["value"]
+
+    from .io import flac, native
+    from .ops import _build
+
+    report["native_dsp"] = {
+        "status": "ok" if native.native_available() else "MISSING (numpy fallbacks active)"}
+    report["native_flac"] = {
+        "status": "ok" if flac.flac_available() else "MISSING (FLAC undecodable)"}
+    for key, fmt, lib in (("libvorbis", "Ogg Vorbis", "libvorbisfile.so.3"),
+                          ("libmpg123", "MP3", "libmpg123.so.0"),
+                          ("libopus", "Ogg Opus", "libopus.so.0")):
+        try:
+            ctypes.CDLL(lib)
+            loads = "loads"
+        except OSError:
+            loads = "absent"
+        report[key] = {"status": f"NOT PORTED ({fmt} undecodable by "
+                                 f"softspoken_tpu_torch; {lib} {loads})"}
+    ckpt_path = os.path.join(cfg.paths.model_dir, cfg.paths.model_name)
+    if os.path.isfile(ckpt_path):
+        report["checkpoint"] = {"status": "ok", "path": ckpt_path}
+    else:
+        report["checkpoint"] = {
+            "status": "MISSING (detect degrades to random init)", "path": ckpt_path}
+
+    timeout = float(args.device_timeout)
+    if bounded("device", _probe_device, timeout) is not None:
+        bounded("kernels", _probe_kernels, timeout)
+    else:
+        report["kernels"] = {"status": "ERROR", "error": "no usable CUDA device"}
+    report["native_cache_dir"] = {"status": "ok", "path": _build.BUILD_DIR}
+    bad = [k for k, v in report.items() if v.get("status") != "ok"]
+    report["summary"] = "all ok" if not bad else "attention: " + ", ".join(sorted(bad))
+    print(json.dumps(report, indent=2), flush=True)
+    failed = any(v.get("status") in ("ERROR", "TIMEOUT")
+                 for k, v in report.items() if k != "summary")
+    if any(v.get("status") == "TIMEOUT" for k, v in report.items() if k != "summary"):
+        # a probe thread is stuck in the CUDA runtime: teardown could hang
+        # on it, and the report is out
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    return 1 if failed else 0
+
+
+def _add_detect_parser(sub) -> None:
+    """The JAX CLI's ``detect`` flags, and ``--device``."""
     d = sub.add_parser("detect", help="run voice detection")
     # also accepted after the command; the global --config otherwise
     d.add_argument("--config", default=argparse.SUPPRESS,
@@ -534,6 +660,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the deterministic random-init fixture weights")
     d.add_argument("--precision", choices=["fast", "parity"])
     d.add_argument("--device-batch", type=int)
+    d.add_argument("--file-concurrency", type=int, metavar="K",
+                   help="detect K files at once, each worker thread on its own "
+                        "CUDA stream; results persist in submission order, so "
+                        "the CSV equals the sequential run's. Default 1")
     _add_operating_point_flags(
         d, "drop regions whose surrounding audio scores rhythmic/music-like "
            "(engine/postfilter.py). Optional value = score threshold "
@@ -542,8 +672,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reprocess files already in the CSV")
     d.add_argument("--streaming", action="store_true",
                    help="force bounded-memory streaming decode")
+    d.add_argument("--chunk-checkpoint", type=int, metavar="N", default=None,
+                   help="persist fused-pipeline progress every N chunks so a "
+                        "killed run resumes mid-file (engine/journal.py); "
+                        "sidecars live in .chunk_progress/ next to the CSV")
+    for flag, kw in (("--mesh", dict(action="store_true")),
+                     ("--distributed", dict(action="store_true")),
+                     ("--coordinator", {}), ("--num-processes", dict(type=int)),
+                     ("--process-id", dict(type=int))):
+        d.add_argument(flag, help="multi-GPU (not ported yet)", **kw)
     d.add_argument("--device", help="torch device (default: the CUDA card)")
     d.set_defaults(func=cmd_detect)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="softspoken_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", help="JSON config file overriding defaults")
+    p.add_argument("--project-dir", help="projects root (default ./projects)")
+    p.add_argument("-v", "--verbose", action="store_true", help="debug-level logs")
+    p.add_argument("--log-json", action="store_true",
+                   help="emit machine-parseable JSON-lines logs on stderr")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pp = sub.add_parser("project", help="manage projects")
+    pp.add_argument("action", choices=["new", "list", "status", "add-files",
+                                       "remove-files", "merge-detections"])
+    pp.add_argument("name", nargs="?", help="project name")
+    pp.add_argument("files", nargs="*", help="audio files (new/add-files/remove-files)")
+    pp.set_defaults(func=cmd_project)
+
+    _add_detect_parser(sub)
 
     pr = sub.add_parser("review", help="review detections")
     pr.add_argument("action", choices=["list", "grade", "keep", "erase", "add",
@@ -569,12 +728,26 @@ def build_parser() -> argparse.ArgumentParser:
 
     _add_train_parser(sub)
     _add_eval_parser(sub)
+
+    pdx = sub.add_parser(
+        "doctor", help="environment diagnosis (card, kernels, native libraries, "
+                       "checkpoint) with bounded timeouts")
+    pdx.add_argument("--device-timeout", type=float, default=60.0,
+                     help="seconds to wait on each device probe before "
+                          "reporting TIMEOUT (default 60)")
+    pdx.set_defaults(func=cmd_doctor)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils import setup_logging
+
+    setup_logging(level=logging.DEBUG if args.verbose else logging.INFO,
+                  json_lines=args.log_json)
     out = args.func(args)
+    if isinstance(out, int):
+        return out
     return 1 if isinstance(out, dict) and out.get("errors") else 0
 
 

@@ -71,9 +71,11 @@ class EngineConfig:
     chunk_seconds: float = 150.0
     # skip files whose detections already exist in the CSV
     skip_processed_files: bool = True
-    # chunk journal for mid-file resume; not ported yet (must stay 0)
+    # fused pipeline: save the chunk journal (engine/journal.py) every N
+    # chunks so a killed run resumes mid-file; 0 = no journal
     chunk_checkpoint_every: int = 0
-    # files detected concurrently; this package runs them sequentially
+    # files detected concurrently by the runner (worker threads); results
+    # persist in submission order
     file_concurrency: int = 1
     # chunks prepared (host fill + pinned upload) ahead of the device
     readahead_chunks: int = 4
@@ -102,9 +104,11 @@ class EngineConfig:
     # "default" (one bf16 pass).  "auto" = "highest" in parity mode, else
     # "default".  The mel product stays fp32 in every mode.
     mel_precision: str = "auto"
-    # decoder strategy; only "concat" is ported ("auto" resolves to it)
+    # decoder strategy: "auto", "concat" or "phase"; the port computes
+    # concat for each ("phase" is the same function another way)
     decoder_upsample: str = "auto"
-    # 3×3 conv implementation; only "direct" is ported ("auto" resolves to it)
+    # 3×3 conv implementation: "auto", "direct" or "packed"; the port
+    # computes direct for each ("packed" is the same function another way)
     conv_impl: str = "auto"
     # detection pipeline: "fused" (engine/fused.py) or "host"
     # (engine/detector.py); "auto" = fused on CUDA, host elsewhere

@@ -30,11 +30,13 @@ and bf16 output.  ``mel_kernel`` / ``mel_precision`` pin either explicitly;
 The detection path computes the mask head only (``SpecUNet2D.mask_logits``);
 ``process_batch`` returns both heads.  ``engine.music_filter`` runs the
 music post-filter (``engine/postfilter.py``, numpy on the host) over each
-result's interval list, where the JAX detector runs it.  Not ported yet,
-and raising ``NotImplementedError`` at use: chunk journaling
-(``chunk_checkpoint_every``, ``journal_dir``), the lossy upload wires,
-``decoder_upsample="phase"``, ``conv_impl="packed"`` and orbax checkpoint
-directories.
+result's interval list, where the JAX detector runs it.
+``engine.decoder_upsample`` and ``engine.conv_impl`` take the JAX
+package's values; "phase" and "packed" compute the same function as
+"concat" and "direct", so the port runs concat/direct for each.  Chunk
+journaling (``journal_dir``) lives in the fused pipeline;
+the host pipeline logs that it does not journal and goes on.  Orbax
+checkpoint directories are not read (``NotImplementedError``).
 
 Without ``state_dict`` or ``checkpoint_path`` the detector loads the
 trained weights, ``root/models/spec_unet_2d/model_checkpoint.pth`` in the
@@ -132,10 +134,13 @@ class Detector:
         self.device = resolve_device(device)
         self.epoch = -1
         eng = config.engine
-        if eng.decoder_upsample not in ("auto", "concat"):
-            raise _not_ported(f"decoder_upsample={eng.decoder_upsample!r}")
-        if eng.conv_impl not in ("auto", "direct"):
-            raise _not_ported(f"conv_impl={eng.conv_impl!r}")
+        # "phase" and "packed" name other ways to compute the same U-Net
+        # (the JAX models/unet.py:38-130); both ran slower on the card, so
+        # every value computes concat / direct here (ROADMAP.md §3)
+        if eng.decoder_upsample not in ("auto", "concat", "phase"):
+            raise ValueError(f"unknown decoder_upsample {eng.decoder_upsample!r}")
+        if eng.conv_impl not in ("auto", "direct", "packed"):
+            raise ValueError(f"unknown conv_impl {eng.conv_impl!r}")
         self.pipeline = resolve_pipeline(eng.pipeline, self.device)
         self.resample_backend = resolve_resample_backend(eng.resample_backend, self.device)
 
@@ -173,6 +178,16 @@ class Detector:
             raise ValueError(f"unknown mel_kernel {mk!r}")
         self.mel_kernel = mk
         self._engines: Dict[tuple, object] = {}
+        self._digest: Optional[str] = None
+
+    def weights_digest(self) -> str:
+        """``engine.journal.variables_digest`` of the model as it runs
+        (folded, in its dtype, on its device), computed once."""
+        if self._digest is None:
+            from .journal import variables_digest
+
+            self._digest = variables_digest(self.model.state_dict())
+        return self._digest
 
     # ------------------------------------------------------------------
     def _forward(self, wave: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
@@ -392,8 +407,12 @@ class Detector:
         if self.pipeline == "fused":
             return self.detect_file_fused(path, progress, journal_dir, timers=timers)
         cfg = self.cfg
-        if journal_dir or cfg.engine.chunk_checkpoint_every > 0:
-            raise _not_ported("chunk journaling (engine.chunk_checkpoint_every)")
+        if journal_dir:
+            # chunk resume lives in the fused pipeline's grid bookkeeping;
+            # say so instead of silently restarting from zero next time
+            log.warning("chunk checkpointing requires the fused pipeline "
+                        "(engine.pipeline='fused'); host pipeline run of %s will "
+                        "not journal chunk progress", path)
         sr = cfg.dsp.sample_rate
         pad = cfg.pad_samples
         total = internal_length(path, sr)

@@ -16,6 +16,15 @@ factor (``io/decimate.py``, ``engine.wire_decimate``).  The host reads
 chunk k+depth and uploads it on a side stream while the card computes chunk
 k, and fetches every chunk's grid in one transfer at the end.
 
+With a journal (``engine.chunk_checkpoint_every`` > 0 and a journal
+directory), every N chunks the grids completed since the last save and the
+carry come down in one transfer into an ``.npz`` sidecar
+(``engine/journal.py``); a killed run resumes at the first unsaved chunk
+with the saved carry, and its grid is bit-equal to an uninterrupted run's.
+
+The engine keeps no per-run state, so threads detecting files side by side
+share it.
+
 The grid sums each bin's windows in a fixed order, so a run gives the same
 bits every time: at the default step (0.6 s, p = 5, ``grid_tile_period``)
 as p disjoint contiguous blocks added in group order, as the JAX package
@@ -30,6 +39,8 @@ against the JAX package's fused pipeline, not its host pipeline.
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -46,7 +57,7 @@ from ..io.decimate import WireDecimator, decim_factor
 from ..io.resample import _ratio, polyphase_apply, polyphase_block_geometry
 from ..ops import adpcm, mulaw
 from . import regions as R
-from .detector import DetectionResult, Detector, _not_ported
+from .detector import DetectionResult, Detector
 from .planner import num_windows_for_padded_length, window_starts
 
 CARRY = 512  # bins of inter-chunk grid overlap (needs ≥ 256 − min bin stride)
@@ -81,7 +92,9 @@ class FusedStreamingEngine:
 
     ``kind`` is "i16" (PCM16 mono, ÷32768 on the device), "f32" (host
     decoded and downmixed), "mulaw8" (int8 mu-law codes) or "adpcm4" (uint8
-    IMA-ADPCM blocks).  Not thread-safe; ``run`` keeps its state local.
+    IMA-ADPCM blocks).  Built once, then only read: ``_program``,
+    ``_accumulate`` and ``_placement`` write no attribute, and ``run`` keeps
+    its state local, so threads may share one engine.
     """
 
     def __init__(self, detector: Detector, native_sr: int, kind: str = "i16"):
@@ -260,14 +273,17 @@ class FusedStreamingEngine:
         read_native: Callable[[int, int], np.ndarray],
         native_frames: int,
         progress: Optional[Callable[[float], None]] = None,
+        journal=None,
         timers=None,
     ) -> DetectionResult:
         """Detect over a native-rate stream of ``native_frames`` samples.
 
         ``read_native(start, frames)`` returns mono samples, clamped at EOF:
-        float32 for the "f32" wire, int16 for every other.  ``timers``
-        (runtime.metrics.StageTimers) collects host_fill / device_put on the
-        read-ahead threads and wait_prepare / dispatch / final_fetch here.
+        float32 for the "f32" wire, int16 for every other.  ``journal``
+        (engine.journal.ChunkJournal) resumes from and saves chunk progress.
+        ``timers`` (runtime.metrics.StageTimers) collects host_fill /
+        device_put on the read-ahead threads and wait_prepare / dispatch /
+        checkpoint / final_fetch here.
         """
         tt = timers.time if timers is not None else (lambda _n: nullcontext())
         cfg = self.cfg
@@ -305,6 +321,24 @@ class FusedStreamingEngine:
                 put(got, out[a0 - start: a0 - start + len(got)])
 
         n_chunks = -(-n_windows // self.chunk_w)
+
+        done_parts: List[np.ndarray] = []
+        k0 = 0
+        carry_sum = torch.zeros(CARRY, dtype=torch.float32, device=self.device)
+        carry_cnt = torch.zeros_like(carry_sum)
+        if journal is not None:
+            # bind the journal to this exact computation before trusting it
+            journal.header.update(
+                n_windows=int(n_windows), n_chunks=int(n_chunks),
+                chunk_w=int(self.chunk_w), glen=int(self.glen),
+                kind=self.kind, native_sr=int(self.native_sr))
+            resume = journal.load()
+            if resume is not None and resume.chunks_done < n_chunks:
+                done_parts = list(resume.avg_parts)
+                k0 = resume.chunks_done
+                carry_sum = torch.from_numpy(resume.carry_sum).to(self.device)
+                carry_cnt = torch.from_numpy(resume.carry_cnt).to(self.device)
+        every = max(1, cfg.engine.chunk_checkpoint_every or 1)
 
         def prepare(ci: int):
             """Host side of chunk ci (fill thread): pinned staging + metadata."""
@@ -383,15 +417,13 @@ class FusedStreamingEngine:
                 timers.add("device_put", time.perf_counter() - t_put)
             return dev, place, ev, lo, fin, w1
 
-        carry_sum = torch.zeros(CARRY, dtype=torch.float32, device=self.device)
-        carry_cnt = torch.zeros_like(carry_sum)
         depth = max(1, cfg.engine.readahead_chunks)
         pending: List[Tuple[int, torch.Tensor]] = []
         with ThreadPoolExecutor(max_workers=1) as fill_ex, \
                 ThreadPoolExecutor(max_workers=1) as up_ex:
             futs = deque(up_ex.submit(upload, fill_ex.submit(prepare, ci))
-                         for ci in range(min(depth, n_chunks)))
-            for ci in range(n_chunks):
+                         for ci in range(k0, min(k0 + depth, n_chunks)))
+            for ci in range(k0, n_chunks):
                 with tt("wait_prepare"):
                     dev, place, ev, lo, fin, w1 = futs.popleft().result()
                 if ci + depth < n_chunks:
@@ -409,11 +441,27 @@ class FusedStreamingEngine:
                 pending.append((fin, avg))
                 if progress is not None:
                     progress(w1 / n_windows)
+                if (journal is not None and ci + 1 < n_chunks
+                        and (ci + 1 - k0) % every == 0):
+                    # checkpoint: the grids completed since the last save and
+                    # the carry, in one device→host transfer
+                    with tt("checkpoint"):
+                        got = torch.cat([a[:f] for f, a in pending]
+                                        + [carry_sum, carry_cnt]).cpu().numpy()
+                        at = 0
+                        for f, _a in pending:
+                            done_parts.append(got[at: at + f])
+                            at += f
+                        pending = []
+                        journal.save(done_parts, got[at: at + CARRY], got[at + CARRY:])
 
-        # one device→host transfer for every chunk's grid
+        # one device→host transfer for every grid not yet fetched
         with tt("final_fetch"):
-            avg_values = torch.cat([a[:fin] for fin, a in pending]).cpu().numpy()
-        avg_values = avg_values[:covered]
+            tail = (torch.cat([a[:fin] for fin, a in pending]).cpu().numpy()
+                    if pending else np.zeros(0, np.float32))
+        avg_values = np.concatenate(done_parts + [tail])[:covered]
+        if journal is not None:
+            journal.clear()
         if cfg.engine.min_count > 1:
             # coverage counts are a pure function of the window offsets
             # (NNDetector.py:153,181-183): recompute them on the host
@@ -431,14 +479,70 @@ class FusedStreamingEngine:
                                native_frames / self.native_sr)
 
 
+_ENGINES_LOCK = threading.Lock()
+
+
 def get_fused_engine(detector: Detector, native_sr: int, kind: str) -> FusedStreamingEngine:
-    """The detector's engine for (native_sr, kind), built on first use."""
+    """The detector's engine for (native_sr, kind), built once under a lock
+    (worker threads of the runner ask for it concurrently)."""
     key = (native_sr, kind, detector.cfg.engine.device_batch,
            detector.cfg.engine.chunk_seconds)
-    eng = detector._engines.get(key)
-    if eng is None:
-        eng = detector._engines[key] = FusedStreamingEngine(detector, native_sr, kind)
-    return eng
+    with _ENGINES_LOCK:
+        eng = detector._engines.get(key)
+        if eng is None:
+            eng = detector._engines[key] = FusedStreamingEngine(detector, native_sr, kind)
+        return eng
+
+
+def backend_tag(device: torch.device) -> str:
+    """The journal header's ``backend``: the port and its device, never a
+    JAX backend, so a journal of the JAX package or of another device kind
+    is never resumed here."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return f"torch-cuda:{torch.cuda.get_device_name(device)}"
+    return f"torch-{device.type}"
+
+
+def _make_journal(detector: Detector, path: str, journal_dir: Optional[str]):
+    """Chunk-resume sidecar bound to (file identity, weights, numerics), with
+    the JAX package's header keys and the port's own ``backend`` tag."""
+    if not journal_dir:
+        return None
+    from .journal import journal_for
+
+    st = os.stat(path)
+    cfg = detector.cfg
+    header = {
+        "size": int(st.st_size), "mtime_ns": int(st.st_mtime_ns),
+        "weights": detector.weights_digest(), "step_seconds": cfg.engine.step_seconds,
+        "precision": cfg.engine.precision, "sample_rate": cfg.dsp.sample_rate,
+        # every knob that changes the numerics: a resume must never stitch
+        # grids computed under different kernels, precisions or wires
+        "mel_precision": cfg.engine.mel_precision,
+        "mel_kernel": cfg.engine.mel_kernel,
+        "pad_seconds": cfg.engine.pad_seconds,
+        "decoder_upsample": cfg.engine.decoder_upsample,
+        "upload_codec": cfg.engine.upload_codec,
+        "wire_decimate": _wire_decimate_tag(cfg),
+        "device_batch": cfg.engine.device_batch,
+        "chunk_seconds": cfg.engine.chunk_seconds,
+        "backend": backend_tag(detector.device),
+    }
+    return journal_for(journal_dir, path, header)
+
+
+def _wire_decimate_tag(cfg) -> str:
+    """Journal-header tag for the wire decimation: the knob, the filter
+    design's ``DECIM_VERSION`` and which decimator runs (the native loop or
+    numpy, which agree only to ~1 LSB of the int16 wire)."""
+    wd = cfg.engine.wire_decimate
+    if wd == "off":
+        return "off"
+    from ..io import native
+    from ..io.decimate import DECIM_VERSION
+
+    return f"{wd}:v{DECIM_VERSION}:{'c' if native.native_available() else 'np'}"
 
 
 def _i16_kind(detector: Detector) -> str:
@@ -469,7 +573,7 @@ def _maybe_wire_decimate(detector: Detector, read_fn, frames: int, sr: int, kind
 
 
 def _run_mono_f32_source(detector: Detector, read_f32, frames: int, sr: int,
-                         progress, timers=None) -> DetectionResult:
+                         progress, journal=None, timers=None) -> DetectionResult:
     """The fused engine over a mono float32 range reader (the host-decoded
     formats): on a lossy wire the samples are rounded to int16 first
     (≤3e-5 full scale, inside the codec's own quantization); exact wires
@@ -483,9 +587,9 @@ def _run_mono_f32_source(detector: Detector, read_f32, frames: int, sr: int,
 
         rd, nfr, wire_sr = _maybe_wire_decimate(detector, read_i16, frames, sr, kind)
         engine = get_fused_engine(detector, wire_sr, kind)
-        return engine.run(rd, nfr, progress, timers=timers)
+        return engine.run(rd, nfr, progress, journal, timers=timers)
     engine = get_fused_engine(detector, sr, "f32")
-    return engine.run(read_f32, frames, progress, timers=timers)
+    return engine.run(read_f32, frames, progress, journal, timers=timers)
 
 
 def detect_file_fused(
@@ -509,11 +613,12 @@ def detect_file_fused(
         int16.
 
     Each int16 stream on a lossy wire goes through ``_maybe_wire_decimate``.
+    With ``journal_dir`` set, chunk progress persists there and a killed run
+    resumes mid-file, on every branch.
     """
-    if journal_dir or detector.cfg.engine.chunk_checkpoint_every > 0:
-        raise _not_ported("chunk journaling (engine.chunk_checkpoint_every)")
     kind = _i16_kind(detector)
     inf = probe(path)
+    journal = _make_journal(detector, path, journal_dir)
     if inf.subtype.startswith("FLAC"):
         if inf.channels == 1 and (inf.bits_per_sample <= 16 or kind in LOSSY):
             with flac.SequentialMonoReader(
@@ -521,10 +626,10 @@ def detect_file_fused(
                 rd, nfr, sr = _maybe_wire_decimate(
                     detector, smr.read, inf.frames, inf.samplerate, kind)
                 engine = get_fused_engine(detector, sr, kind)
-                return engine.run(rd, nfr, progress, timers=timers)
+                return engine.run(rd, nfr, progress, journal, timers=timers)
         with flac.SequentialMonoReader(path) as smr:
             engine = get_fused_engine(detector, inf.samplerate, "f32")
-            return engine.run(smr.read, inf.frames, progress, timers=timers)
+            return engine.run(smr.read, inf.frames, progress, journal, timers=timers)
 
     if isinstance(inf, wavio.WavInfo) and inf.subtype == "PCM_16" and inf.channels == 1:
         with wavio.RawReader(path) as reader:
@@ -535,7 +640,7 @@ def detect_file_fused(
             rd, nfr, sr = _maybe_wire_decimate(
                 detector, read_native, inf.frames, inf.samplerate, kind)
             engine = get_fused_engine(detector, sr, kind)
-            return engine.run(rd, nfr, progress, timers=timers)
+            return engine.run(rd, nfr, progress, journal, timers=timers)
 
     if (isinstance(inf, wavio.WavInfo) and inf.channels == 1
             and inf.subtype in ("PCM_24", "PCM_32", "PCM_U8") and kind in LOSSY):
@@ -548,10 +653,10 @@ def detect_file_fused(
             rd, nfr, sr = _maybe_wire_decimate(
                 detector, read_top16, inf.frames, inf.samplerate, "mulaw8")
             engine = get_fused_engine(detector, sr, "mulaw8")
-            return engine.run(rd, nfr, progress, timers=timers)
+            return engine.run(rd, nfr, progress, journal, timers=timers)
 
     def read_f32(start: int, frames: int) -> np.ndarray:
         return read_mono(path, start=start, frames=frames)[0]
 
     return _run_mono_f32_source(detector, read_f32, inf.frames, inf.samplerate,
-                                progress, timers=timers)
+                                progress, journal, timers=timers)

@@ -23,7 +23,7 @@ import numpy as np
 import scipy.signal
 import torch
 
-from ..ops.mel import fp32_matmul
+from ..ops.mel import fixed_order_matmul, fp32_matmul
 from . import native
 
 # 32 zero-crossings per side at the lower rate, Kaiser beta 12.98 (~130 dB
@@ -135,7 +135,7 @@ def polyphase_apply(x: torch.Tensor, W: torch.Tensor, *, wmin: int, pad_l: int,
     A = x[base: base + n].reshape(n_blocks + n_copies, down)
     X = torch.cat([A[k: k + n_blocks] for k in range(n_copies)], dim=1)[:, :width]
     with fp32_matmul():
-        Y = X @ W
+        Y = fixed_order_matmul(X, W)
     return Y.reshape(-1)
 
 

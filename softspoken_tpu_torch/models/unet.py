@@ -97,6 +97,37 @@ def channel_dropout(x: torch.Tensor, p: float,
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class _PointwiseConv:
+    """A 1×1 convolution that in inference on the CPU always runs through
+    oneDNN (float32 and bfloat16; float64 has no oneDNN kernel).  Training
+    keeps ``F.conv2d`` and its autograd and autocast rules as they were.
+
+    ``F.conv2d`` picks oneDNN for a 1×1 convolution of a batch under 16
+    only when more than one intra-op thread is available, and another
+    kernel with another rounding on one thread; every other convolution of
+    the model is oneDNN's at any thread count.  The weights and the state
+    dict keys are those of ``nn.Conv2d`` / ``nn.Conv1d``.
+    """
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        if (x.device.type == "cpu" and x.dtype in (torch.float32, torch.bfloat16)
+                and not torch.is_grad_enabled() and not torch.is_autocast_enabled("cpu")
+                and torch.backends.mkldnn.is_available()):
+            return torch.ops.aten.mkldnn_convolution(
+                x.contiguous(), weight, bias, list(self.padding), list(self.stride),
+                list(self.dilation), self.groups)
+        return super()._conv_forward(x, weight, bias)
+
+
+class PointwiseConv2d(_PointwiseConv, nn.Conv2d):
+    pass
+
+
+class PointwiseConv1d(_PointwiseConv, nn.Conv1d):
+    pass
+
+
 class ResBlock(nn.Module):
     """Residual conv block (pytorch_neural_nets.py:7-77), 2-D or 1-D.
 
@@ -112,7 +143,8 @@ class ResBlock(nn.Module):
         self.dropout_p = dropout_p
 
         def seq(ci, k, pad):
-            layers = [conv(ci, cout, k, padding=pad, bias=folded)]
+            cls = (PointwiseConv1d if oned else PointwiseConv2d) if k == 1 else conv
+            layers = [cls(ci, cout, k, padding=pad, bias=folded)]
             if not folded:
                 layers.append(bn(cout, eps=BN_EPS))
             return nn.Sequential(*layers)
@@ -146,12 +178,14 @@ class SpecUNet2D(nn.Module):
             if "." not in name:
                 setattr(self, name, ResBlock(ci, co, folded, dropout_p=dropout_p))
         self.spec_output_conv = nn.Sequential(
-            ResBlock(FILTERS, FILTERS, folded, dropout_p=dropout_p), nn.Conv2d(FILTERS, 2, 1))
+            ResBlock(FILTERS, FILTERS, folded, dropout_p=dropout_p),
+            PointwiseConv2d(FILTERS, 2, 1))
         # Conv2d(32→4, kernel=(128, 1)): a VALID conv with one vertical
         # position, computed in _flatten as one contraction over (mel, channel)
         self.conv_flatten = nn.Conv2d(FILTERS, 4, (N_MELS, 1))
         self.mask_output_conv = nn.Sequential(
-            ResBlock(4, 4, folded, oned=True, dropout_p=dropout_p), nn.Conv1d(4, 1, 1))
+            ResBlock(4, 4, folded, oned=True, dropout_p=dropout_p),
+            PointwiseConv1d(4, 1, 1))
 
     def _trunk(self, mel: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, 128, 256) → conv9 features (B, 32, 128, 256)."""

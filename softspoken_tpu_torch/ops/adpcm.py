@@ -30,7 +30,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import KERNEL_LAUNCHES, _build
+from . import _build, count_launch
 
 SPB = 256                 # samples per block (16 ms at the 16 kHz wire)
 HDR_BYTES = 4
@@ -218,5 +218,5 @@ def decode_device(wire: torch.Tensor, n_samples: int) -> torch.Tensor:
     rc = _lib().adpcm_decode_launch(wire.data_ptr(), nb, out.data_ptr(), n_samples, stream)
     if rc != 0:
         raise RuntimeError(f"adpcm_decode kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES[NAME] += 1
+    count_launch(NAME)
     return out

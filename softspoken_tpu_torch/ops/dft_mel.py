@@ -23,7 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import KERNEL_LAUNCHES, _build, mel_core
+from . import _build, count_launch, mel_core
 from . import mel as melops
 
 ROWS_PER_TILE = 256  # the TPU kernel's row tile; B·F must be a multiple
@@ -54,7 +54,7 @@ def log_mel_from_frames_dft_ref(frames: torch.Tensor) -> torch.Tensor:
     with melops.fp32_matmul():
         proj = frames.to(torch.float32) @ w
         re, im = proj[..., :N_BINS], proj[..., N_BINS:]
-        mel = (re * re + im * im) @ fb
+        mel = melops.fixed_order_matmul(re * re + im * im, fb)
     return torch.sqrt(torch.log10(mel + 1.0)).transpose(-1, -2)
 
 
@@ -98,7 +98,7 @@ def log_mel_from_frames_dft(frames: torch.Tensor) -> torch.Tensor:
                                out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dft_mel kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES[NAME] += 1
+    count_launch(NAME)
     return out
 
 

@@ -18,7 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import KERNEL_LAUNCHES, _build, mel_core
+from . import _build, count_launch, mel_core
 from . import mel as melops
 
 N_FREQS_PAD = 768   # mel support ends at bin 743; bins >= 768 weigh exactly 0
@@ -51,7 +51,7 @@ def log_mel_windows_fused_ref(buf: torch.Tensor, starts: torch.Tensor,
     with melops.fp32_matmul():
         proj = melops.dft_product(frames, w, mode)
         re, im = proj[..., :N_FREQS_PAD], proj[..., N_FREQS_PAD:]
-        mel = (re * re + im * im) @ fb
+        mel = melops.fixed_order_matmul(re * re + im * im, fb)
     mel = torch.sqrt(torch.log10(mel + 1.0))
     return mel.transpose(-1, -2).to(out_dtype)
 
@@ -105,5 +105,5 @@ def log_mel_windows_fused(buf: torch.Tensor, starts: torch.Tensor,
         _MODE_PARTS[mode], int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"frame_mel kernel launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES[NAME] += 1
+    count_launch(NAME)
     return out

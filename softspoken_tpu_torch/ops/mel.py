@@ -22,6 +22,7 @@ float64 with numpy and stored as float32, exactly as the JAX package's
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from functools import lru_cache
 
@@ -182,6 +183,35 @@ def dft_product(frames: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tenso
     return _bf16(frames) @ _bf16(w)
 
 
+_K_SLICE = 16
+
+
+def fixed_order_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a (..., K) and b (K, N), with a summation order on the
+    CPU that does not depend on how many threads the BLAS gets.
+
+    On the CPU the BLAS splits a long reduction across its threads when N is
+    narrow: the 1,025-bin mel product (N = 128) rounds three ways under 1,
+    2, 3 and 8 threads, and the resampler's matrix-vector product (N = 1,
+    integer decimation such as 44.1 kHz) under every team size.  Here the
+    reduction runs in 16-term slices added in order, each slice one product
+    too short to be split; a matrix-vector product adds its terms one by
+    one.  On the card ``a @ b`` as it is.
+    """
+    if a.device.type != "cpu":
+        return a @ b
+    k_len, n = b.shape
+    if n == 1:
+        out = a[..., 0:1] * b[0]
+        for k in range(1, k_len):
+            out = out + a[..., k: k + 1] * b[k]
+        return out
+    out = a[..., :_K_SLICE] @ b[:_K_SLICE]
+    for k in range(_K_SLICE, k_len, _K_SLICE):
+        out = out + a[..., k: k + _K_SLICE] @ b[k: k + _K_SLICE]
+    return out
+
+
 @lru_cache(maxsize=8)
 def _device_tables(device: torch.device) -> "tuple[torch.Tensor, torch.Tensor]":
     """(W, fb) on ``device``, uploaded once: a pageable copy per call would
@@ -190,14 +220,17 @@ def _device_tables(device: torch.device) -> "tuple[torch.Tensor, torch.Tensor]":
             torch.from_numpy(mel_filterbank()).to(device))
 
 
-def log_mel_from_frames(frames: torch.Tensor, mode: str = "highest") -> torch.Tensor:
-    """(B, F, 512) frames → (B, n_mels, F) compressed log-mel, float32."""
+def log_mel_from_frames(frames: torch.Tensor, mode: str = "highest",
+                        fixed_order: bool = True) -> torch.Tensor:
+    """(B, F, 512) frames → (B, n_mels, F) compressed log-mel, float32.
+    ``fixed_order`` sums the mel product with ``fixed_order_matmul``, so
+    that a detection grid on the CPU is the same under any thread count."""
     w, fb = _device_tables(frames.device)
     with fp32_matmul():
         proj = dft_product(frames.to(torch.float32), w, mode)
         re, im = proj[..., :N_FREQS], proj[..., N_FREQS:]
         power = re * re + im * im
-        mel = power @ fb
+        mel = fixed_order_matmul(power, fb) if fixed_order else power @ fb
     mel = torch.sqrt(torch.log10(mel + 1.0))
     return mel.transpose(-1, -2)
 
@@ -223,8 +256,15 @@ def train_mel_mode(device: torch.device) -> str:
 def log_mel_clips(clips: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     """(B, 66150) independent 3 s clips → (B, n_mels, 256) compressed log-mel,
     float32: each clip is its own window.  The training batch synthesizer
-    calls it with ``train_mel_mode(device)``."""
-    return log_mel_from_frames(frames_from_window(clips.to(torch.float32)), mode)
+    calls it with ``train_mel_mode(device)``; training makes no claim of
+    bit-equal runs, so its mel product keeps the BLAS's own order."""
+    return log_mel_from_frames(frames_from_window(clips.to(torch.float32)), mode,
+                               fixed_order=False)
+
+
+_tf32_lock = threading.Lock()
+_tf32_holders = 0
+_tf32_saved = (False, False)
 
 
 @contextmanager
@@ -234,11 +274,25 @@ def fp32_matmul():
     On CUDA, cuDNN convolutions default to TF32 (about three decimal digits)
     and a caller may have turned TF32 on for matmuls; the resampler, the
     parity path and the "highest" mel chain need true float32.
+
+    The flags are process-global, so the guard is reference-counted under a
+    lock: the first holder saves them and turns TF32 off, and only the last
+    one to leave restores them.  Threads detecting files side by side never
+    see TF32 come back on while one of them is still inside.
     """
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    global _tf32_holders, _tf32_saved
+    with _tf32_lock:
+        if _tf32_holders == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_holders += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _tf32_lock:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved

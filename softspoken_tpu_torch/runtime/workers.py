@@ -5,8 +5,16 @@ file, detect → append rows → save the CSV (the reference's per-file resume
 checkpoint).  Files already in the CSV are skipped when
 ``cfg.engine.skip_processed_files``; a failed file is retried once and then
 recorded in ``RunReport.errors`` without stopping the run, so callers must
-check ``errors``.  Files are detected and persisted one after another
-(``file_concurrency`` 1).
+check ``errors``.
+
+``engine.file_concurrency`` = K detects up to K files at once on worker
+threads (so one file's host decode overlaps another's); this thread settles
+the results strictly in submission order, so the CSV rows and the store's
+single writer are those of the sequential run.  Per-file progress and
+message callbacks may then fire from worker threads and interleave.  With
+``engine.chunk_checkpoint_every`` > 0 the fused pipeline journals each
+file's chunk progress in ``.chunk_progress/`` next to the detections CSV,
+and a killed run resumes mid-file.
 
 Which decode a file gets follows the JAX package's runner, with the CUDA
 card in place of its TPU: the fused pipeline always streams; otherwise a
@@ -19,6 +27,7 @@ from __future__ import annotations
 
 import os
 import threading
+from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, Optional
@@ -63,9 +72,9 @@ class DetectRunner:
 
     def __init__(self, detector: Detector, store: DetectionStore,
                  config: Config = DEFAULT_CONFIG, streaming: Optional[bool] = None):
-        if config.engine.file_concurrency != 1:
-            raise NotImplementedError(
-                "file_concurrency > 1 is not ported to softspoken_tpu_torch yet")
+        if config.engine.file_concurrency < 1:
+            raise ValueError(f"file_concurrency must be >= 1, got "
+                             f"{config.engine.file_concurrency}")
         self.detector = detector
         self.store = store
         self.cfg = config
@@ -75,8 +84,17 @@ class DetectRunner:
         self.timers = StageTimers()
 
     def stop(self) -> None:
-        """Stop between files (the file in progress completes)."""
+        """Stop between files: no new file starts, and the files in flight
+        complete and are settled."""
         self._stop.set()
+
+    def journal_dir(self) -> Optional[str]:
+        """Where chunk journals live: ``.chunk_progress/`` next to the
+        detections CSV, when ``engine.chunk_checkpoint_every`` > 0."""
+        if self.cfg.engine.chunk_checkpoint_every <= 0:
+            return None
+        return os.path.join(os.path.dirname(os.path.abspath(self.store.path)),
+                            ".chunk_progress")
 
     def _use_streaming(self, path: str) -> bool:
         if self.streaming is not None:
@@ -99,15 +117,30 @@ class DetectRunner:
             raise IOError(f"failed to decode {path}")
         return audio
 
-    def _detect(self, path: str, audio, cb: RunCallbacks):
+    def _detect(self, path: str, audio, cb: RunCallbacks, journal_dir: Optional[str]):
         def progress(frac):
             cb.emit("file_progress", frac * 100.0)
 
         with self.timers.time("detect"):
             if audio is None:
-                return self.detector.detect_file_streaming(path, progress,
+                return self.detector.detect_file_streaming(path, progress, journal_dir,
                                                            timers=self.timers)
             return self.detector.detect_waveform(audio, progress, timers=self.timers)
+
+    def _task(self, path: str, fut: Future, cb: RunCallbacks,
+              journal_dir: Optional[str]):
+        """One file on a worker thread: its decode, then its detection,
+        retried once after a transient fault.  A kernel that fails to build
+        or launch fails the same way again and becomes the file's error;
+        nothing falls back to a plain version."""
+        audio = fut.result()
+        try:
+            return self._detect(path, audio, cb, journal_dir)
+        except (IOError, NotImplementedError, ValueError):
+            raise  # unreadable or unsupported input: a retry cannot help
+        except Exception as e:  # noqa: BLE001 — one retry for a transient fault
+            cb.emit("message", f"retrying {path} after: {e!r}")
+            return self._detect(path, audio, cb, journal_dir)
 
     def run(self, files: Iterable[str],
             callbacks: Optional[RunCallbacks] = None) -> RunReport:
@@ -118,8 +151,12 @@ class DetectRunner:
         self.meter.reset()
         already = self.store.processed_files() if self.cfg.engine.skip_processed_files else set()
         todo = iter([p for p in files if p not in already])
+        journal_dir = self.journal_dir()
+        k = self.cfg.engine.file_concurrency
         prefetch = ThreadPoolExecutor(max_workers=1)
+        workers = ThreadPoolExecutor(max_workers=k)
         decoded: Dict[str, Future] = {}
+        in_flight: deque = deque()  # (path, future) in submission order
 
         def prefetch_next() -> None:
             path = next(todo, None)
@@ -135,34 +172,40 @@ class DetectRunner:
                 if path in already:
                     report.files_skipped += 1
                     cb.emit("message", f"skipping already-processed {path}")
-                else:
-                    fut = decoded.pop(path)
-                    prefetch_next()  # the next decode overlaps this detection
-                    self._one(path, fut, cb, report)
-                advanced = report.files_done + report.files_skipped + len(report.errors)
-                cb.emit("overall_progress", advanced / max(1, total) * 100.0)
+                    self._advance(cb, report, total)
+                    continue
+                fut = decoded.pop(path)
+                prefetch_next()  # the next decode overlaps this detection
+                cb.emit("file_started", path)
+                in_flight.append((path, workers.submit(self._task, path, fut, cb,
+                                                       journal_dir)))
+                while len(in_flight) >= k:
+                    self._settle(*in_flight.popleft(), cb, report, total)
+            while in_flight:  # after a stop() too: the files in flight settle
+                self._settle(*in_flight.popleft(), cb, report, total)
         finally:
-            # a decode not yet started is dropped; one in progress completes
+            # a decode or detection not yet started is dropped; one in
+            # progress completes
             prefetch.shutdown(wait=True, cancel_futures=True)
+            workers.shutdown(wait=True, cancel_futures=True)
             report.throughput = self.meter.summary()
             report.timers = self.timers.summary()
             cb.emit("finished")
         return report
 
-    def _one(self, path: str, fut: Future, cb: RunCallbacks, report: RunReport) -> None:
-        cb.emit("file_started", path)
+    def _advance(self, cb: RunCallbacks, report: RunReport, total: int) -> None:
+        advanced = report.files_done + report.files_skipped + len(report.errors)
+        cb.emit("overall_progress", advanced / max(1, total) * 100.0)
+
+    def _settle(self, path: str, fut: Future, cb: RunCallbacks, report: RunReport,
+                total: int) -> None:
+        """Persist one detection (this thread only, in submission order)."""
         try:
-            audio = fut.result()
-            try:
-                result = self._detect(path, audio, cb)
-            except (IOError, NotImplementedError, ValueError):
-                raise  # unreadable or unsupported input: a retry cannot help
-            except Exception as e:  # noqa: BLE001 — one retry for a transient fault
-                cb.emit("message", f"retrying {path} after: {e!r}")
-                result = self._detect(path, audio, cb)
+            result = fut.result()
         except Exception as e:  # noqa: BLE001 — recorded; the run goes on
             report.errors[path] = f"{type(e).__name__}: {e}"
             cb.emit("message", f"detection failed for {path}: {e!r}")
+            self._advance(cb, report, total)
             return
         with self.timers.time("persist"):
             report.rows_added += self.store.append_intervals(path, result.intervals)
@@ -173,3 +216,4 @@ class DetectRunner:
         cb.emit("file_done", path)
         cb.emit("message", f"{path}: {len(result.intervals)} region(s); "
                            f"{self.meter.audio_sec_per_wall_sec:.1f} audio-sec/sec")
+        self._advance(cb, report, total)

@@ -299,3 +299,80 @@ def test_adpcm_wrapper_rejects_a_misaligned_wire():
     wire = torch.zeros(2 * adpcm.BLOCK_BYTES + 1, dtype=torch.uint8, device="cuda")
     with pytest.raises(ValueError):
         adpcm.decode_device(wire[1:], 10)
+
+
+def _field_wav(path, seconds, sr, seed):
+    from softspoken_tpu_torch.io import wavio
+
+    rng = np.random.default_rng(seed)
+    x = (0.02 * rng.standard_normal(int(seconds * sr))).astype(np.float32)
+    x[sr: 3 * sr] += (0.4 * np.sin(2 * np.pi * 700 * np.arange(2 * sr) / sr)).astype(np.float32)
+    wavio.write(path, x, sr, subtype="PCM_16")
+
+
+def test_journaled_resume_on_the_card_is_bit_equal(tmp_path):
+    """Killed after 2 chunk programs and resumed, fast mode (K1) on the card:
+    the remaining programs only, the grid bit-equal, the sidecar cleared."""
+    _need_card()
+    import os
+
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+
+    p, jd = str(tmp_path / "j.wav"), str(tmp_path / "progress")
+    _field_wav(p, 60.0, 32000, seed=3)
+    det = Detector(Config().with_engine(device_batch=16, chunk_seconds=15.0,
+                                        chunk_checkpoint_every=1),
+                   state_dict=fixture_state_dict(0))
+    base = det.detect_file_streaming(p)
+    engine = get_fused_engine(det, 32000, "i16")
+    n_chunks = -(-base.num_windows // engine.chunk_w)
+    assert n_chunks >= 3
+    program, calls = engine._program, []
+
+    def killer(*a, **k):
+        if len(calls) >= 2:
+            raise RuntimeError("simulated preemption")
+        calls.append(1)
+        return program(*a, **k)
+
+    engine._program = killer
+    try:
+        with pytest.raises(RuntimeError):
+            det.detect_file_streaming(p, journal_dir=jd)
+        calls.clear()
+        engine._program = lambda *a, **k: (calls.append(1), program(*a, **k))[1]
+        res = det.detect_file_streaming(p, journal_dir=jd)
+    finally:
+        del engine._program
+    assert len(calls) == n_chunks - 2
+    np.testing.assert_array_equal(res.avg_values, base.avg_values)
+    assert res.intervals == base.intervals and os.listdir(jd) == []
+
+
+def test_two_files_on_two_threads_equal_the_sequential_run(tmp_path):
+    """DetectRunner with file_concurrency=2 (two worker threads sharing the
+    card) writes the byte-identical CSV of K=1, in fast mode on the card."""
+    _need_card()
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.project import DetectionStore
+    from softspoken_tpu_torch.runtime import DetectRunner
+
+    paths = []
+    for i in range(4):
+        paths.append(str(tmp_path / f"s{i}.wav"))
+        _field_wav(paths[-1], 40.0 + 10 * i, 32000, seed=10 + i)
+    out = []
+    for k in (1, 2):
+        cfg = Config().with_engine(chunk_seconds=15.0, file_concurrency=k)
+        det = Detector(cfg, state_dict=fixture_state_dict(0))
+        store = DetectionStore(str(tmp_path / f"k{k}.csv"))
+        rep = DetectRunner(det, store, cfg).run(paths)
+        assert not rep.errors and rep.files_done == 4
+        with open(store.path, "rb") as f:
+            out.append(f.read())
+    assert out[0] == out[1]

@@ -140,10 +140,3 @@ def test_cli_fails_on_an_unreadable_file(tmp_path):
                    "--random-init", "--device", "cpu", "--device-batch", "4"])
     assert rc == 1
 
-
-@pytest.mark.parametrize("eng", [dict(chunk_checkpoint_every=2)], ids=["journal"])
-def test_later_slices_raise(tmp_path, eng):
-    p = _wav(tmp_path, 22050, 1.0)
-    with pytest.raises(NotImplementedError):
-        Detector(Config().with_engine(pipeline="fused", **eng),
-                 state_dict=fixture_state_dict(0), device="cpu").detect_file_streaming(p)
