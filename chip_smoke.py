@@ -100,9 +100,25 @@ Phases:
      FLAC through ``DetectRunner`` at file_concurrency 1, 2, 4, three
      turns (CSV byte-identical to K = 1's, aggregate rates); doctor — the
      port's report, ``device`` and ``kernels`` ok.
+ 11. slice 11, after ``doctor``: first detect — the 30-minute WAV, trained,
+     fused, as the first detect of a fresh process (this script with
+     ``--first-detect MODE WAV``), inline and through ``DetectRunner`` at
+     K = 1, twice each, rate and ``dispatch``; bench — ``python -m
+     softspoken_tpu_torch bench --seconds 1800`` with BENCH_REPEATS=3 and
+     BENCH_TRACE: every key of the root bench.py's line plus ``device``,
+     mfu = value x flops_per_audio_second() / the card's bf16 peak (1e-6),
+     the i16 wire, device_only > 0, the trace naming K1's kernel and the
+     ``annotate`` span, value >= 0.75 x phase 3's warm rate; then K1's
+     launches over one timed repeat's detect and one ``device_only_rate``;
+     gui — the Qt app under the port's shim on the card: a project of two
+     5-minute WAVs, the detector screen (K1 counted; its CSV byte-identical
+     to ``detect``'s), the review spectrogram saved, one row erased, the
+     silence screen (erased samples 0, the rest the input's), and ``gui
+     --smoke --screenshot`` as a subprocess.
 Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
-over phase 8; ``launches_journal``: in phase 10's journaled run), the
-nvidia-smi line, and as the last
+over phase 8; ``launches_journal``: in phase 10's journaled run;
+``launches_bench_repeat``, ``launches_bench_device_only`` and
+``launches_gui``: phase 11's), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
 """
@@ -603,7 +619,7 @@ def phase_end_to_end(work: str, wav: str, sr: int, seconds: float) -> dict:
     engine = get_fused_engine(det, sr, "i16")
     rate = engine.device_only_rate(repeats=4)
     log(f"device_only_rate={rate:.2f} audio-s/wall-s")
-    return launches, profile_chunks(engine)
+    return launches, profile_chunks(engine), warm["audio_sec_per_wall_sec"]
 
 
 def profile_chunks(engine, repeats: int = 2) -> None:
@@ -2117,6 +2133,285 @@ def phase_concurrency(work: str, smi: str) -> None:
     log(f"concurrency phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the first detect of a process, `bench`, and the Qt app on the card
+def first_detect(mode: str, wav: str) -> int:
+    """One case of the first-detect measurement, run as this script's
+    subprocess: the trained weights, fused, and the first detect of the
+    process on ``wav``, either ``Detector.detect_file_streaming`` on the
+    main thread ("inline") or ``DetectRunner`` at K = 1, whose detection
+    runs on a worker thread ("runner").  Prints one JSON line."""
+    import tempfile
+
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.project import DetectionStore
+    from softspoken_tpu_torch.runtime import DetectRunner, StageTimers
+
+    cfg = Config()
+    det = Detector(cfg)
+    torch.cuda.synchronize()
+    if mode == "inline":
+        timers = StageTimers()
+        t0 = time.perf_counter()
+        res = det.detect_file_streaming(wav, timers=timers)
+        wall = time.perf_counter() - t0
+        stages, audio = timers.summary(), res.audio_seconds
+    elif mode == "runner":
+        with tempfile.TemporaryDirectory() as d:
+            rep = DetectRunner(det, DetectionStore(os.path.join(d, "d.csv")), cfg).run([wav])
+        if rep.errors or rep.files_done != 1:
+            raise AssertionError(f"first detect through DetectRunner: {rep.errors}")
+        stages, audio = rep.timers, rep.throughput["audio_seconds"]
+        wall = rep.throughput["wall_seconds"]
+    else:
+        raise ValueError(f"unknown first-detect mode {mode!r}")
+    print(json.dumps({"mode": mode, "audio_sec_per_wall_sec": audio / wall,
+                      "wall_seconds": wall, "stage_seconds": stages}), flush=True)
+    return 0
+
+
+def phase_first_detect(wav: str, smi: str) -> None:
+    """The first fused detect of a process, inline against DetectRunner at
+    K = 1 on a worker thread: one subprocess per case, each its first
+    detect, on the 30-minute WAV with the trained weights."""
+    for mode in ("inline", "runner", "inline", "runner"):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-detect",
+                            mode, wav], cwd=HERE, capture_output=True, text=True,
+                           timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+        if r.returncode != 0:
+            raise AssertionError(f"first detect ({mode}): {r.stderr[-2000:]}")
+        got = json.loads(r.stdout.strip().splitlines()[-1])
+        st = got["stage_seconds"]
+        log(f"first detect {mode}: audio_sec_per_wall_sec={got['audio_sec_per_wall_sec']:.2f} "
+            f"wall_s={got['wall_seconds']:.3f} dispatch={st.get('dispatch', 0.0):.3f} "
+            f"stage_seconds={json.dumps({k: round(v, 3) for k, v in st.items()})} | {smi}")
+
+
+def bench_payload_keys(path: str) -> "tuple[set, set]":
+    """A bench script's JSON keys, read from its source (not imported):
+    those of the dicts given to ``payload.update`` (every run prints them)
+    and those assigned as ``payload[...]`` (printed when their phase runs)."""
+    import ast
+
+    always, assigned = set(), set()
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "update" and getattr(node.func.value, "id", "") == "payload"):
+            always |= {k.value for k in node.args[0].keys}
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Subscript) and getattr(t.value, "id", "") == "payload":
+                    assigned.add(t.slice.value)
+    return always, assigned
+
+
+def phase_bench(work: str, warm_rate: float, smi: str) -> dict:
+    """``python -m softspoken_tpu_torch bench --seconds 1800`` in a subprocess
+    (BENCH_REPEATS=3, the last repeat traced): its line holds every JAX key
+    plus ``device``, its mfu is value x flops_per_audio_second() / the
+    card's peak, the wire is i16, the device-only rate is positive, the
+    trace names K1's kernel and the annotated span, and the best of three
+    repeats reaches 0.75 of phase 3's warm fused rate.  Then, in this
+    process, K1's launches over one timed repeat's detect (the bench's
+    config and WAV) and over one ``device_only_rate`` call."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.runtime.metrics import device_peak_flops, flops_per_audio_second
+
+    t_phase = time.perf_counter()
+    bdir = os.path.join(work, "bench")
+    shutil.rmtree(bdir, ignore_errors=True)
+    trace_dir = os.path.join(bdir, "trace")
+    os.makedirs(trace_dir)
+    env = dict(os.environ, PYTHONPATH=HERE, TMPDIR=bdir, BENCH_REPEATS="3",
+               BENCH_TRACE=trace_dir)
+    r = subprocess.run([sys.executable, "-m", "softspoken_tpu_torch", "bench", "--seconds",
+                        "1800"], cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"bench exited {r.returncode}: {r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    log("bench line:", lines[-1])
+    line = json.loads(lines[-1])
+    always, assigned = bench_payload_keys(os.path.join(HERE, "bench.py"))
+    missing = sorted((always | {"multifile_rate", "multifile_k", "multifile_stats"})
+                     - set(line))
+    extra = sorted(set(line) - always - assigned - {"device"})
+    peak = device_peak_flops()
+    want_mfu = line["value"] * flops_per_audio_second() / peak
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    text = ""
+    for t in traces:
+        with open(t, encoding="utf-8") as f:
+            text += f.read()
+    k1_named = "mel_core_kernel" in text and "WindowLoader" in text
+    span_named = '"bench.detect_file_streaming"' in text
+    checks = {
+        "every JAX key and device": not missing and line.get("device") == smi,
+        "no other key": not extra,
+        "mfu = value x flops / peak": abs(line["mfu"] - want_mfu) <= 1e-6,
+        "wire_codec i16": line["wire_codec"] == "i16",
+        "device_only > 0": line["device_only"] > 0,
+        "trace names K1 and an annotate span": bool(traces) and k1_named and span_named,
+        "value >= 0.75 x phase 3's warm rate": line["value"] >= 0.75 * warm_rate,
+    }
+    log(f"bench: value={line['value']} mfu={line['mfu']:.6f} (want {want_mfu:.6f}, peak "
+        f"{peak:.4g}) device_only={line['device_only']} device_only_mfu="
+        f"{line['device_only_mfu']:.6f} warm rate of phase 3={warm_rate:.2f} "
+        f"(x{line['value'] / warm_rate:.3f}) multifile_rate={line.get('multifile_rate')} "
+        f"trace files={len(traces)} bytes={len(text)} missing={missing} extra={extra} "
+        f"checks={json.dumps(checks)} | {smi}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("bench phase: " + "; ".join(failed))
+
+    det = Detector(Config().with_engine(device_batch=128, chunk_seconds=150),
+                   state_dict=fixture_state_dict(seed=0))
+    det.detect_file_streaming(os.path.join(bdir, "softspoken_bench", "warm.wav"))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    det.detect_file_streaming(os.path.join(bdir, "softspoken_bench", "bench_1800s.wav"))
+    torch.cuda.synchronize()
+    per_repeat = dict(KERNEL_LAUNCHES)
+    dev_det = Detector(Config().with_engine(device_batch=128, chunk_seconds=600),
+                       state_dict=fixture_state_dict(seed=0))
+    eng = get_fused_engine(dev_det, 32000, "i16")
+    eng.device_only_rate(repeats=1)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    eng.device_only_rate()
+    torch.cuda.synchronize()
+    device_only = dict(KERNEL_LAUNCHES)
+    log(f"bench launches: one timed repeat's detect {json.dumps(per_repeat)}, one "
+        f"device_only_rate() call {json.dumps(device_only)} | "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not per_repeat.get("frame_mel") or not device_only.get("frame_mel"):
+        raise AssertionError("the bench's paths did not launch frame_mel")
+    shutil.rmtree(bdir)
+    return {"launches_bench_repeat": per_repeat["frame_mel"],
+            "launches_bench_device_only": device_only["frame_mel"]}
+
+
+def phase_gui(work: str, smi: str) -> int:
+    """The Qt app under the port's headless shim on the card: a project of
+    two 5-minute WAVs, the detector screen's start (K1 counted), the review
+    spectrogram saved as a screenshot, one row graded "erase", the silence
+    screen; and ``python -m softspoken_tpu_torch gui --smoke --screenshot``
+    on that project.  The GUI's detections CSV must be byte-identical to
+    ``detect``'s on the same files and config, the PNGs non-empty, each
+    erased sample 0 and every other sample the input's."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.project import read_csv
+    from softspoken_tpu_torch.project.table import to_number
+    from softspoken_tpu_torch.ui.qt_shim import install
+
+    t_phase = time.perf_counter()
+    gdir = os.path.join(work, "gui")
+    shutil.rmtree(gdir, ignore_errors=True)
+    os.makedirs(gdir)
+    wavs = [os.path.join(gdir, f"gui_{s}.wav") for s in (61, 62)]
+    for s, p in zip((61, 62), wavs):
+        _field_wav(p, 300.0, 32000, seed=s)
+    install(force=True)
+    from PySide6.QtWidgets import QApplication, QFileDialog, QInputDialog
+
+    from softspoken_tpu_torch.ui import qt_app
+
+    pdir = os.path.join(gdir, "projects")
+    QApplication.instance() or QApplication([])
+    win = qt_app.SoftspokenApp(Config().with_paths(project_dir=pdir))
+    win.show()
+    QInputDialog.getText = staticmethod(lambda *a, **k: ("gui", True))
+    QFileDialog.getOpenFileNames = staticmethod(lambda *a, **k: (wavs, ""))
+    win.new_project()
+    win.workspace.add_files()
+    files = win.pm.get_unprocessed_list()
+    win.show_detector()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    win.detector.start_btn.click()
+    torch.cuda.synchronize()
+    t_detect = time.perf_counter() - t0
+    launches = dict(KERNEL_LAUNCHES)
+    if not win.detector.log.text().startswith(f"done: {len(wavs)} file(s)"):
+        raise AssertionError(f"gui detect: {win.detector.log.text()}")
+    if not launches.get("frame_mel"):
+        raise AssertionError("the detector screen did not launch frame_mel")
+    gui_csv = win.pm.current_project["detections_file"]
+    cli_csv = os.path.join(gdir, "cli_detections.csv")
+    _cli(["detect", "--files", *files, "--out", cli_csv], "detect", {})
+    with open(gui_csv, "rb") as a, open(cli_csv, "rb") as b:
+        gui_bytes, cli_bytes = a.read(), b.read()
+
+    win.show_review()
+    shot = os.path.join(gdir, "review.png")
+    pix = win.review.image.pixmap()
+    if pix is None or not pix.save(shot):
+        raise AssertionError(f"the review spectrogram did not render: {win.review.image.text()}")
+    win.review.table.selectRow(0)
+    win.review.erase()
+    outdir = os.path.join(gdir, "silenced")
+    QFileDialog.getExistingDirectory = staticmethod(lambda *a, **k: outdir)
+    win.show_silence()
+    win.silence.start()
+    info = win.silence.info.text()
+    win.close()
+
+    shot2 = os.path.join(gdir, "smoke.png")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "softspoken_tpu_torch", "--project-dir", pdir,
+                        "gui", "--smoke", "--screenshot", shot2], cwd=HERE, capture_output=True,
+                       text=True, timeout=600, env=dict(os.environ, PYTHONPATH=HERE))
+    t_smoke = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"gui --smoke exited {r.returncode}: {r.stderr[-2000:]}")
+
+    review = read_csv(win.pm.current_project["review_file"])
+    erase = {}
+    for row in review.rows:
+        if to_number(row["erase"]) == 1:
+            erase.setdefault(os.path.join(row["file_path"], row["file_name"]), []).append(
+                (float(row["start_time"]), float(row["end_time"])))
+    samples_ok = len(erase) == 1 and info == "done: 1 silenced file(s)"
+    for f, ivs in erase.items():
+        raw, inf = wavio.read_raw(f)
+        x = raw.view("<i2")
+        out = os.path.join(outdir, os.path.splitext(os.path.basename(f))[0] + "_silenced.wav")
+        raw, inf2 = wavio.read_raw(out)
+        got = raw.view("<i2")
+        mask = _erase_mask(len(x), inf.samplerate, ivs)
+        samples_ok &= (inf2.samplerate == inf.samplerate and len(got) == len(x)
+                       and bool(np.all(got[mask] == 0))
+                       and bool(np.array_equal(got[~mask], x[~mask])) and bool(mask.any()))
+    pngs = {p: os.path.getsize(p) if os.path.exists(p) else 0 for p in (shot, shot2)}
+    pngs_ok = all(n > 0 and open(p, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+                  for p, n in pngs.items())
+    n_rows = gui_bytes.count(b"\n") - 1
+    log(f"gui: detector screen {t_detect:.3f} s for {len(files)} x 300 s "
+        f"({len(files) * 300.0 / t_detect:.2f} audio-s/wall-s), launches={json.dumps(launches)}, "
+        f"csv bytes={len(gui_bytes)} rows={n_rows} equal to detect's="
+        f"{gui_bytes == cli_bytes}; screenshot bytes={pngs[shot]}, gui --smoke "
+        f"{t_smoke:.1f} s screenshot bytes={pngs[shot2]}; silence: {info!r}, erased rows="
+        f"{sum(len(v) for v in erase.values())}, samples held={samples_ok} | "
+        f"phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    if gui_bytes != cli_bytes:
+        raise AssertionError("the GUI's detections CSV differs from detect's")
+    if not pngs_ok:
+        raise AssertionError(f"a screenshot is missing or empty: {pngs}")
+    if not samples_ok:
+        raise AssertionError("the GUI's silenced WAV does not hold the erased samples")
+    shutil.rmtree(gdir)
+    return launches["frame_mel"]
+
+
 def phase_doctor() -> None:
     """The port's ``doctor``: ``device`` and ``kernels`` must be ok."""
     import contextlib
@@ -2137,11 +2432,17 @@ def phase_doctor() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
+    ap.add_argument("--first-detect", nargs=2, metavar=("MODE", "WAV"),
+                    help="one case of the first-detect measurement (a subprocess of "
+                         "the full run): MODE inline or runner")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 2
     import softspoken_tpu_torch  # noqa: F401 — fails outside a checkout
+
+    if args.first_detect:
+        return first_detect(*args.first_detect)
 
     smi = nvidia_smi_line()
     log("card:", smi, "| torch:", torch.cuda.get_device_name(0))
@@ -2167,7 +2468,7 @@ def main() -> int:
         log(f"wrote {seconds:.0f} s and 60 s {sr} Hz PCM16 WAVs in "
             f"{time.perf_counter() - t1:.1f} s")
         phase_native(wav, smi)
-        launches, chunk_device_ms = phase_end_to_end(work, wav, sr, seconds)
+        launches, chunk_device_ms, warm_rate = phase_end_to_end(work, wav, sr, seconds)
         k1["launches"] = launches.get("frame_mel", 0)
         phase_parity(wav60)
         k2["launches"] = phase_host_path(work, wav)
@@ -2183,6 +2484,9 @@ def main() -> int:
         k1["launches_journal"] = phase_journal(work, wav, smi)
         phase_concurrency(work, smi)
         phase_doctor()
+        phase_first_detect(wav, smi)
+        k1.update(phase_bench(work, warm_rate, smi))
+        k1["launches_gui"] = phase_gui(work, smi)
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

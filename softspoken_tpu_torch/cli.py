@@ -13,9 +13,15 @@
                   DIR`` synthesizes a labeled eval set first)
   doctor        — one JSON report of the environment: the card, the
                   kernels' build, the native libraries, the checkpoint
+  bench         — one JSON line: the 30-minute WAV's audio-s/wall-s on the
+                  card, the device-only rate and MFU against the card's
+                  dense bf16 peak
+  gui           — the Qt desktop app (PySide6, or ``--smoke`` under the
+                  headless shim)
 
 The JAX package's commands and flags.  ``detect`` and ``eval`` run on the
-CUDA card by default (``--device cpu`` to run on the CPU), with the trained
+CUDA card by default (``--device cpu`` to run on the CPU; so do ``train``,
+``bench`` and ``gui``), with the trained
 weights of ``root/models/spec_unet_2d/model_checkpoint.pth`` unless
 ``--checkpoint`` (``eval --ckpt``) or ``--random-init`` says otherwise.
 They read WAV (RF64, RIFX, G.711, ADPCM), FLAC, AIFF/AIFC, W64, CAF, AU
@@ -642,6 +648,27 @@ def cmd_doctor(args) -> int:
     return 1 if failed else 0
 
 
+def cmd_bench(args) -> None:
+    # an explicit --seconds wins over an ambient BENCH_SECONDS; with no flag
+    # the variable (bench.py's own contract) still applies
+    if args.seconds is not None:
+        os.environ["BENCH_SECONDS"] = str(args.seconds)
+    else:
+        os.environ.setdefault("BENCH_SECONDS", "1800")
+    from . import bench
+
+    bench.main(args.device)
+
+
+def cmd_gui(args) -> int:
+    if args.smoke:
+        os.environ.setdefault("SOFTSPOKEN_QT_SHIM", "1")
+    from .ui import qt_app
+
+    return qt_app.main(_load_config(args), smoke_mode=args.smoke,
+                       screenshot=args.screenshot, device=args.device)
+
+
 def _add_detect_parser(sub) -> None:
     """The JAX CLI's ``detect`` flags, and ``--device``."""
     d = sub.add_parser("detect", help="run voice detection")
@@ -736,6 +763,20 @@ def build_parser() -> argparse.ArgumentParser:
                      help="seconds to wait on each device probe before "
                           "reporting TIMEOUT (default 60)")
     pdx.set_defaults(func=cmd_doctor)
+
+    pb = sub.add_parser("bench", help="throughput benchmark")
+    pb.add_argument("--seconds", type=float, default=None,
+                    help="benchmark recording length (default 1800; an "
+                         "explicit value overrides BENCH_SECONDS)")
+    pb.add_argument("--device", help="torch device (default: the CUDA card)")
+    pb.set_defaults(func=cmd_bench)
+
+    pg = sub.add_parser("gui", help="Qt desktop app (PySide6, or headless shim)")
+    pg.add_argument("--smoke", action="store_true",
+                    help="construct + click through every screen headlessly")
+    pg.add_argument("--screenshot", help="(--smoke) save the review spectrogram PNG")
+    pg.add_argument("--device", help="torch device for detection (default: the CUDA card)")
+    pg.set_defaults(func=cmd_gui)
     return p
 
 

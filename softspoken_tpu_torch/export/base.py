@@ -37,6 +37,11 @@ class ReviewExportManager:
             raise KeyError(f"transform '{transform.name}' already registered")
         self._registry[transform.name] = transform
 
+    def transform(self, cls: type) -> type:
+        """Decorator registration."""
+        self.register_transform(cls())
+        return cls
+
     def names(self):
         return list(self._registry)
 
@@ -65,6 +70,9 @@ class ReviewExportManager:
         else:
             raise TypeError(f"unsupported transform return type {type(result).__name__}")
         return dst
+
+    def export_all(self, dst_dir: Union[str, Path], **kw) -> Dict[str, Optional[Path]]:
+        return {name: self.export(name, dst_dir, **kw) for name in self._registry}
 
 
 def standard_manager(table: Table) -> ReviewExportManager:

@@ -14,13 +14,18 @@ Behavior parity with ``review_detections.py:800-968``:
     spans = other detections in window, optional 0.5 s dotted gridlines
 
 The renderer returns PNG bytes (matplotlib Agg), so any frontend can show
-or save it.
+or save it.  Where matplotlib is not installed (the card's machine) it
+draws the same image without axes or labels — the grayscale spectrogram,
+the red and blue spans and the dotted gridlines over the plot area — and
+writes the PNG itself (``_plain_png``).
 """
 
 from __future__ import annotations
 
 import io
 import math
+import struct
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -98,10 +103,10 @@ def render_review_png(
     config: Config = DEFAULT_CONFIG,
 ) -> bytes:
     """Produce the review-screen spectrogram PNG for one detection."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    try:
+        import matplotlib
+    except ImportError:
+        matplotlib = None
 
     sr = config.dsp.sample_rate
     audio_start, audio_end, total_duration = plan_view_window(
@@ -118,11 +123,24 @@ def render_review_png(
     spec = display_spec(data, trim_edges=False)
     db = amplitude_to_db(spec.astype(np.float64) ** 2)
     flipped = np.abs(db)
+    view_end = audio_start + total_duration
+    spacing = _tick_spacing(total_duration, widget_width_px)
+    ticks = np.arange(np.floor(audio_start), np.ceil(view_end) + spacing,
+                      spacing)
+    others = [(s, e) for s, e in other_detections
+              if e >= audio_start and s <= view_end
+              and not (s == detection_start and e == detection_end)]
+    if matplotlib is None:
+        return _plain_png(flipped, (audio_start, view_end), (detection_start, detection_end),
+                          others, ticks if show_gridlines else (),
+                          int(widget_width_px), int(widget_height_px / 2))
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
 
     fig, ax = plt.subplots(
         figsize=(widget_width_px / dpi, widget_height_px / dpi / 2), dpi=dpi
     )
-    view_end = audio_start + total_duration
     ax.imshow(
         flipped,
         origin="lower",
@@ -134,19 +152,9 @@ def render_review_png(
     )
     # current detection red, overlapping others blue (:907-926)
     ax.axvspan(detection_start, detection_end, color="red", alpha=0.3)
-    for s, e in other_detections:
-        if e >= audio_start and s <= view_end and not (s == detection_start and e == detection_end):
-            ax.axvspan(s, e, color="blue", alpha=0.3)
+    for s, e in others:
+        ax.axvspan(s, e, color="blue", alpha=0.3)
 
-    # 0.5 s grid at review zoom (reference look), but cap the tick count:
-    # a zoomed-out multi-minute view at fixed 0.5 s spacing drew thousands
-    # of axvlines/labels per render on the UI thread
-    spacing = 0.5
-    max_ticks = max(8.0, widget_width_px / 40.0)
-    while total_duration / spacing > max_ticks:
-        spacing *= 2.0
-    ticks = np.arange(np.floor(audio_start), np.ceil(view_end) + spacing,
-                      spacing)
     if show_gridlines:
         for t in ticks:
             ax.axvline(x=t, color="b", linestyle=":", alpha=0.3)
@@ -163,3 +171,53 @@ def render_review_png(
     fig.savefig(buf, format="png")
     plt.close(fig)
     return buf.getvalue()
+
+
+def _tick_spacing(total_duration: float, widget_width_px: int) -> float:
+    """0.5 s grid at review zoom (reference look), doubled until the tick
+    count is capped: a zoomed-out multi-minute view at fixed 0.5 s spacing
+    drew thousands of axvlines/labels per render on the UI thread."""
+    spacing = 0.5
+    max_ticks = max(8.0, widget_width_px / 40.0)
+    while total_duration / spacing > max_ticks:
+        spacing *= 2.0
+    return spacing
+
+
+def _plain_png(flipped: np.ndarray, view: Tuple[float, float],
+               detection: Tuple[float, float], others, ticks,
+               width: int, height: int) -> bytes:
+    """The review image without matplotlib: ``flipped`` (freq × time) as
+    grayscale from its min (black) to its max (white), origin lower, scaled
+    to ``width`` × ``height`` by nearest sample; the current detection
+    blended 30% red, the others 30% blue, dotted blue gridlines at
+    ``ticks``; written as an 8-bit RGB PNG."""
+    lo, hi = float(flipped.min()), float(flipped.max())
+    gray = (flipped - lo) / (hi - lo) if hi > lo else np.zeros_like(flipped)
+    rows = np.minimum((np.arange(height)[::-1] + 0.5) * flipped.shape[0] / height,
+                      flipped.shape[0] - 1).astype(np.int64)
+    cols = np.minimum((np.arange(width) + 0.5) * flipped.shape[1] / width,
+                      flipped.shape[1] - 1).astype(np.int64)
+    img = np.repeat(gray[rows][:, cols, None], 3, axis=2)
+    t0, t1 = view
+    x_of = (np.arange(width) + 0.5) / width * (t1 - t0) + t0  # each column's time
+    red, blue = np.array([1.0, 0.0, 0.0]), np.array([0.0, 0.0, 1.0])
+    span = (x_of >= detection[0]) & (x_of <= detection[1])
+    img[:, span] = 0.7 * img[:, span] + 0.3 * red
+    for s, e in others:
+        span = (x_of >= s) & (x_of <= e)
+        img[:, span] = 0.7 * img[:, span] + 0.3 * blue
+    for t in ticks:
+        col = int((t - t0) / (t1 - t0) * width)
+        if 0 <= col < width:
+            img[::4, col] = 0.7 * img[::4, col] + 0.3 * blue  # dotted
+    pixels = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+    raw = b"".join(b"\x00" + pixels[r].tobytes() for r in range(height))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))

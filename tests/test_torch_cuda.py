@@ -376,3 +376,76 @@ def test_two_files_on_two_threads_equal_the_sequential_run(tmp_path):
         with open(store.path, "rb") as f:
             out.append(f.read())
     assert out[0] == out[1]
+
+
+def test_bench_line_on_the_card_has_every_jax_key(tmp_path):
+    """The port's bench at 60 s on the card: every key of the JAX line plus
+    ``device``, the i16 wire, and an MFU against the card's own peak."""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import chip_smoke
+    from softspoken_tpu_torch.runtime.metrics import device_peak_flops, flops_per_audio_second
+
+    root = chip_smoke.HERE
+    keys, _assigned = chip_smoke.bench_payload_keys(os.path.join(root, "bench.py"))
+    env = dict(os.environ, PYTHONPATH=root, TMPDIR=str(tmp_path), BENCH_REPEATS="1",
+               BENCH_TIME_BUDGET="0", BENCH_DEV_CHUNK_SECONDS="150")
+    r = subprocess.run([sys.executable, "-m", "softspoken_tpu_torch", "bench", "--seconds",
+                        "60"], cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert keys <= set(line) and "device" in line
+    assert line["device"].startswith(torch.cuda.get_device_name())
+    assert line["wire_codec"] == "i16" and line["device_only"] > 0
+    peak = device_peak_flops()
+    assert abs(line["mfu"] - line["value"] * flops_per_audio_second() / peak) <= 1e-6
+    assert 0 < line["device_only_mfu"] < 1
+
+
+def test_mfu_takes_the_peak_of_the_card():
+    _need_card()
+    from softspoken_tpu_torch.runtime import metrics
+
+    peak = metrics.PEAK_BF16_FLOPS[torch.cuda.get_device_name()]
+    assert metrics.device_peak_flops() == peak
+    assert metrics.mfu(4000.0) == metrics.mfu(4000.0, peak_flops=peak)
+    assert metrics.mfu(4000.0) == pytest.approx(
+        4000.0 * metrics.flops_per_audio_second() / peak)
+
+
+def test_gui_detect_on_the_card_equals_detect_csv(tmp_path):
+    """The Qt app's detector screen (headless shim, the card, the trained
+    weights, fused) writes the detections CSV that ``detect`` writes."""
+    _need_card()
+    import os
+
+    from softspoken_tpu_torch import Config, cli
+    from softspoken_tpu_torch.ui.qt_shim import install
+
+    install(force=True)
+    from PySide6.QtWidgets import QApplication
+
+    from softspoken_tpu_torch.ui import qt_app
+
+    wavs = []
+    for i in range(2):
+        wavs.append(str(tmp_path / f"g{i}.wav"))
+        _field_wav(wavs[-1], 30.0 + 15 * i, 32000, seed=20 + i)
+    QApplication.instance() or QApplication([])
+    win = qt_app.SoftspokenApp(Config().with_paths(project_dir=str(tmp_path / "p")))
+    win.pm.add_project("g")
+    win.pm.set_active_project("g")
+    win.pm.update_file_list(wavs)
+    before = KERNEL_LAUNCHES[fm.NAME]
+    win.detector.start_btn.click()
+    assert win.detector.log.text().startswith("done: 2 file(s)"), win.detector.log.text()
+    assert KERNEL_LAUNCHES[fm.NAME] > before
+    out = str(tmp_path / "cli.csv")
+    assert cli.main(["detect", "--files", *win.pm.get_unprocessed_list(), "--out", out]) == 0
+    with open(win.pm.current_project["detections_file"], "rb") as a, open(out, "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.getsize(out) > 0

@@ -187,3 +187,57 @@ def test_manager_dispatch_like_jax(tmp_path):
     assert path.read_bytes() == (tmp_path / "pd.csv").read_bytes()
     assert set(export.standard_manager(Table(["x"])).names()) == {
         "audacity", "kaleidoscope", "raven"}
+
+
+def test_export_all_byte_identical(tmp_path):
+    """``export_all`` over the standard manager: the same returned keys and
+    paths (None: each stock exporter writes its own files) and trees."""
+    out = {}
+
+    def call(pkg, table, base):
+        out[pkg.__name__] = pkg.standard_manager(table).export_all(
+            base / "dst", base_dir=base, project_name="proj")
+
+    port, jax = _run(tmp_path, _review_data(tmp_path), call)
+    assert port == jax and len(port) == 5
+    assert out["softspoken_tpu_torch.export"] == out["softspoken_tpu.export"] == {
+        "audacity": None, "kaleidoscope": None, "raven": None}
+
+
+def test_transform_decorator_byte_identical(tmp_path):
+    """A transform registered with ``@manager.transform`` returns a table and
+    a string; ``export_all`` writes them as the JAX manager does."""
+    data = _review_data(tmp_path)
+    paths = {}
+
+    def call(pkg, table, base):
+        mgr = pkg.ReviewExportManager(table)
+
+        @mgr.transform
+        class Erased(pkg.Transform):
+            name = "erased"
+
+            def __call__(self, t, **kw):
+                if isinstance(t, Table):
+                    return Table(t.columns, [r for r in t.rows if r["erase"] == 1])
+                return t[t["erase"] == 1]
+
+        @mgr.transform
+        class Names(pkg.Transform):
+            name = "names"
+            extension = ".txt"
+
+            def __call__(self, t, **kw):
+                col = t.column("file_name") if isinstance(t, Table) else list(t["file_name"])
+                return "\n".join(col) + "\n"
+
+        assert isinstance(Erased, type) and mgr.names() == ["erased", "names"]
+        with pytest.raises(KeyError):
+            mgr.transform(Names)
+        base.mkdir(parents=True)
+        got = mgr.export_all(base)
+        paths[pkg.__name__] = {k: v.relative_to(base) for k, v in got.items()}
+
+    port, jax = _run(tmp_path, data, call)
+    assert port == jax and sorted(port) == ["review.csv", "review.txt"]
+    assert paths["softspoken_tpu_torch.export"] == paths["softspoken_tpu.export"]

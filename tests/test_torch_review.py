@@ -225,3 +225,62 @@ def test_render_review_png_matches_jax(audio_dir):
     png = spectrogram.render_review_png(p, 2.0, 2.8, config=Config(), **kw)
     assert png[:8] == b"\x89PNG\r\n\x1a\n" and len(png) > 5000
     assert png == jspec.render_review_png(p, 2.0, 2.8, config=JConfig(), **kw)
+
+
+def _decode_rgb_png(png):
+    """An 8-bit RGB PNG with filter 0 rows (what ``_plain_png`` writes) as
+    an (h, w, 3) uint8 array."""
+    import struct
+    import zlib
+
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(png):
+        (n,) = struct.unpack(">I", png[pos:pos + 4])
+        kind, body = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, color, _c, _f, interlace = struct.unpack(">IIBBBBB", chunks[b"IHDR"])
+    assert (depth, color, interlace) == (8, 2, 0) and b"IEND" in chunks
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    assert not raw[:, 0].any()  # filter type 0 on every row
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def test_render_review_png_without_matplotlib(audio_dir, monkeypatch):
+    """Where matplotlib is absent (the card's machine) the review image is
+    the spectrogram itself: grayscale from the display dB's min to its max,
+    origin lower, the detection 30% red, another detection 30% blue."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import raises
+    p = os.path.join(audio_dir, "a.wav")
+    png = spectrogram.render_review_png(p, 2.0, 2.8, [(0.5, 1.2), (2.0, 2.8)],
+                                        widget_width_px=480, widget_height_px=320,
+                                        show_gridlines=False, config=Config())
+    img = _decode_rgb_png(png).astype(np.int64)
+    assert img.shape == (160, 480, 3)
+    a0, a1, total = spectrogram.plan_view_window(p, 2.0, 2.8, 480)
+    t = (np.arange(480) + 0.5) / 480 * total + a0
+    plain = (t < 0.5) | ((t > 1.2) & (t < 2.0)) | (t > 2.8)
+    red, blue = (t >= 2.0) & (t <= 2.8), (t >= 0.5) & (t <= 1.2)
+    assert plain.any() and red.any() and blue.any()
+    gray = img[:, plain]
+    assert (gray[..., 0] == gray[..., 1]).all() and (gray[..., 1] == gray[..., 2]).all()
+    assert gray.min() == 0 or gray.max() == 255
+    assert (img[:, red, 0] >= img[:, red, 2]).all() and (img[:, red, 0] > img[:, red, 2]).any()
+    assert (img[:, blue, 2] >= img[:, blue, 0]).all() and (img[:, blue, 2] > img[:, blue, 0]).any()
+    # the top row is the highest frequency bin, the bottom row the lowest
+    data, _sr = spectrogram.load_audio_startstop(p, (a0, a1), target_sr=22050)
+    flipped = np.abs(spectrogram.amplitude_to_db(
+        spectrogram.display_spec(data, trim_edges=False).astype(np.float64) ** 2))
+    want = (flipped - flipped.min()) / (flipped.max() - flipped.min()) * 255
+    col = int(np.flatnonzero(plain)[0])
+    src = min(int((col + 0.5) * flipped.shape[1] / 480), flipped.shape[1] - 1)
+    assert img[-1, col, 0] == int(np.rint(want[0, src]))
+    assert img[0, col, 0] == int(np.rint(want[-1, src]))
+    with_grid = spectrogram.render_review_png(p, 2.0, 2.8, widget_width_px=480,
+                                              widget_height_px=320, config=Config())
+    assert with_grid != png and _decode_rgb_png(with_grid).shape == (160, 480, 3)
