@@ -115,10 +115,29 @@ Phases:
      to ``detect``'s), the review spectrogram saved, one row erased, the
      silence screen (erased samples 0, the rest the input's), and ``gui
      --smoke --screenshot`` as a subprocess.
+ 12. slice 12, after ``gui``: fit — ``python -m softspoken_tpu_torch train
+     --speech-dir --noise-dir`` in process, with its default flags, on
+     16 + 16 WAVs from ``train/synth.py`` (10 s at 22,050 Hz, a quarter at
+     44.1 kHz, four 2 s noise files), 23 steps of the full SpecUNet_2D at
+     B = 16 with five augmentations (change_speed and change_pitch among
+     them): steps/s and clips/s after 3 warm steps (the card synchronized
+     after steps 1, 3 and 23 only), first and last loss, peak memory,
+     K1-K3 launches (0); the host split (reads + resample, augmentation,
+     mel) and the train step's ms over 5 synchronized steps; every
+     augmentation card == CPU three times over, with a hash of its clips
+     and parameters, and ``build_batch`` card == CPU; the checkpoint in
+     ``Detector`` on the 60 s WAV.  codecs — which MP3/Ogg/Opus libraries
+     load; per loaded format a 120 s file from its encoder and a float WAV
+     of its decoded samples, fused grids bit-equal, both rates; per absent
+     one, probe/detect raising the reader's error, load_audio (None, None)
+     and ``DetectRunner`` recording the file and finishing the next, as
+     the JAX package does on such a host.
 Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
 over phase 8; ``launches_journal``: in phase 10's journaled run;
 ``launches_bench_repeat``, ``launches_bench_device_only`` and
-``launches_gui``: phase 11's), the nvidia-smi line, and as the last
+``launches_gui``: phase 11's; ``launches_fit`` and ``launches_codecs``:
+phase 12's, the latter per format, null for a format whose library does
+not load), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure exits nonzero before
 that line.  Imports nothing of JAX.
 """
@@ -126,6 +145,7 @@ that line.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -2429,6 +2449,357 @@ def phase_doctor() -> None:
         raise AssertionError("doctor reports the card or the kernels as failed")
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the host trainer from recordings, and the MP3/Ogg/Opus readers
+FIT_AUGS = ("add_reverb", "reduce_volume", "bandpass_filter", "change_speed", "change_pitch")
+# card against CPU on the same clips and parameters, relative to the peak:
+# the pointwise augmentations round the same operations (an ulp of
+# exp/pow), the filters go through cuFFT against pocketfft
+AUG_TOL = {"bandpass_filter": 1e-4, "add_reverb": 1e-5, "add_echo": 1e-5, "gain_ramp": 1e-5}
+AUG_TOL_POINTWISE = 1e-5
+# change_speed's phase vocoder carries each bin's phase into its later
+# frames, so the phase of a near-silent bin, which two FFT libraries round
+# differently, moves the loud frames after it: speech with pauses differs
+# by up to ~1e-2 of the peak between the card and the CPU, a different
+# but equally valid stretch.  It is held on noise and a tone (every bin
+# loud), where only the running sum's order differs, and its vocoder on
+# the CPU's STFT, where a phase advance on the ±π cut may flip (a share of
+# at most 1e-5 of the values, as tests/test_torch_augment.py holds it)
+SPEED_TOL = 2e-3
+# build_batch's mels, card against CPU, mel pinned to "highest", with every
+# augmentation of FIT_AUGS but change_speed (above)
+BATCH_MEL_TOL = 5e-3
+# card-vs-CPU comparisons of each augmentation within one run
+AUG_REPEATS = 3
+
+
+def _digest(data) -> str:
+    """The first 16 hex digits of the SHA-256 of an array's or bytes'
+    contents: two runs that print the same digest had the same input."""
+    raw = data if isinstance(data, bytes) else np.ascontiguousarray(data).tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def _fit_corpora(root: str) -> "tuple[str, str]":
+    """16 speech and 16 noise WAVs from ``train/synth.py``: 10 s at 22,050
+    Hz, a quarter of each at 44.1 kHz (the resampler), and 4 noise files of
+    2 s (the tiling of short noise)."""
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.train import synth
+
+    rng = np.random.default_rng(12)
+    dirs = (os.path.join(root, "speech"), os.path.join(root, "noise"))
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    for i in range(16):
+        sr = 44100 if i < 4 else 22050
+        x, _active = synth.synth_speech(rng, 10 * sr)
+        wavio.write(os.path.join(dirs[0], f"s{i:02d}.wav"), x, sr, subtype="PCM_16")
+        seconds = 2 if 4 <= i < 8 else 10
+        y = synth.synth_environment(rng, seconds * sr)
+        wavio.write(os.path.join(dirs[1], f"n{i:02d}.wav"), y, sr, subtype="PCM_16")
+    return dirs
+
+
+def fit_card_vs_cpu(speech: np.ndarray, noise: np.ndarray, smi: str) -> None:
+    """Each augmentation on the card against the CPU on the same clips and
+    parameters (change_speed as SPEED_TOL says), then ``build_batch`` on
+    both devices from one numpy seed (the same SNRs and per-row
+    parameters), mel pinned to "highest"."""
+    from softspoken_tpu_torch.train import augment as aug
+    from softspoken_tpu_torch.train.data import build_batch
+
+    x = speech[:4] + 0.3 * noise[:4]
+    rng = np.random.default_rng(9)
+    loud = rng.normal(0, 0.2, x.shape).astype(np.float32)
+    loud[1] = 0.4 * np.sin(2 * np.pi * 500 * np.arange(x.shape[1]) / 22050)
+    g = torch.Generator()
+    g.manual_seed(5)
+    names = list(aug.PARAM_RANGES)
+    log(f"augmentation inputs: speech {_digest(speech)} noise {_digest(noise)} "
+        f"mix {_digest(x)} noise-and-tone {_digest(loud)}")
+    worst = {}
+    bad = []
+    for name, params in zip(names, aug.get_parameters(g, names)):
+        clip = loud if name == "change_speed" else x
+        tol = SPEED_TOL if name == "change_speed" else AUG_TOL.get(name, AUG_TOL_POINTWISE)
+        # three comparisons, each side from a fresh copy of the input: each
+        # side must repeat bit for bit, and each comparison hold
+        cpus, cards, errs = [], [], []
+        for _ in range(AUG_REPEATS):
+            cpu = aug.FUNC_MAP[name](torch.from_numpy(clip.copy()), **params)
+            card = aug.FUNC_MAP[name](torch.from_numpy(clip.copy()).cuda(), **params).cpu()
+            diff = (card - cpu).abs()
+            errs.append(float(diff.max() / cpu.abs().max()))
+            if not errs[-1] <= tol:
+                i = int(diff.argmax())
+                bad.append(f"{name}: {errs[-1]:.3g} of the peak {float(cpu.abs().max()):.4g} "
+                           f"({params}); worst at input {float(clip.reshape(-1)[i])!r}: card "
+                           f"{float(card.reshape(-1)[i])!r} cpu {float(cpu.reshape(-1)[i])!r}")
+            cpus.append(cpu)
+            cards.append(card)
+        if not all(torch.equal(c, cpus[0]) for c in cpus[1:]):
+            bad.append(f"{name}: the CPU does not repeat on the same input")
+        if not all(torch.equal(c, cards[0]) for c in cards[1:]):
+            bad.append(f"{name}: the card does not repeat on the same input")
+        worst[name] = max(errs)
+        log(f"augmentation {name}: clips {_digest(clip)} params "
+            f"{_digest(json.dumps(params, sort_keys=True).encode())} "
+            f"max |card - cpu| / peak per repeat {errs}")
+    if bad:
+        raise AssertionError("augmentations on the card differ from the CPU: " + "; ".join(bad))
+    spec = aug._stft(torch.from_numpy(x))
+    n_frames = spec.shape[-2]
+    for sf in (0.8, 1.2):
+        out_frames = n_frames if sf >= 1.0 else int(np.ceil((n_frames - 1) / sf)) + 1
+        cpu = aug._phase_vocoder(spec, sf, out_frames=out_frames)
+        card = aug._phase_vocoder(spec.cuda(), sf, out_frames=out_frames).cpu()
+        off = float(((card - cpu).abs() > 1e-3 * cpu.abs().max()).float().mean())
+        worst[f"phase_vocoder_{sf}_share_off"] = off
+        if off > 1e-5:
+            raise AssertionError(f"the phase vocoder at {sf} on the card: {off:.3g} of "
+                                 f"the values off by more than 1e-3 of the peak")
+    log("augmentations card vs CPU, max |diff| / peak: "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    augs = tuple(a for a in FIT_AUGS if a != "change_speed")
+    got = build_batch(speech[:4], noise[:4], np.random.default_rng(7), augs,
+                      device="cuda", mel_mode="highest")
+    want = build_batch(speech[:4], noise[:4], np.random.default_rng(7), augs,
+                       device="cpu", mel_mode="highest")
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) for k in ("mel", "spec")}
+    mask_diff = float((got["mask"].cpu() != want["mask"]).float().mean())
+    log(f"build_batch card vs CPU (B=4, {', '.join(augs)}, mel highest): "
+        f"max |diff| mel {errs['mel']:.3g} spec {errs['spec']:.3g}, mask frames differing "
+        f"{mask_diff:.4f} | {smi}")
+    if max(errs.values()) > BATCH_MEL_TOL or mask_diff > 0.01:
+        raise AssertionError(f"build_batch on the card differs from the CPU: {errs}, "
+                             f"mask {mask_diff}")
+
+
+def phase_fit(work: str, wav60: str, smi: str) -> dict:
+    """Slice 12: ``python -m softspoken_tpu_torch train --speech-dir
+    --noise-dir`` (the CLI in process, its default flags) on the card: 23
+    steps of the full SpecUNet_2D at B = 16 with FIT_AUGS; steps/s and
+    clips/s after 3 warm steps, first and last loss, peak memory; the
+    kernel counters (fit runs none of K1-K3).  The steps are timed by a
+    wrapper of ``fit``'s ``train_step`` that synchronizes the card after
+    steps 1, 3 and 23 only; the metrics are read where the CLI reads them.  Then the per-step host split
+    (reads + resample, augmentation, mel) and the train step's ms over 5
+    synchronized steps after 3 warm ones; the card against the CPU; the
+    checkpoint in ``Detector`` on the 60 s WAV."""
+    import contextlib
+    import io
+
+    from softspoken_tpu_torch import cli
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.train.data import build_batch
+    from softspoken_tpu_torch.train import fit as fit_mod
+    from softspoken_tpu_torch.train.fit import ClipSampler, list_wavs
+    from softspoken_tpu_torch.train.loop import create_train_state, train_step
+
+    t_phase = time.perf_counter()
+    speech_dir, noise_dir = _fit_corpora(os.path.join(work, "fit"))
+    pth = os.path.join(work, "fit", "fit.pth")
+    argv = ["train", "--speech-dir", speech_dir, "--noise-dir", noise_dir, "--steps", "23",
+            "--batch-size", "16", "--augment", *FIT_AUGS, "--out", pth]
+    log("fit: python -m softspoken_tpu_torch " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    stamps, first_loss, count = {}, [], [0]
+    real_step = fit_mod.train_step
+
+    def timed_step(state, batch, *args):
+        m = real_step(state, batch, *args)
+        count[0] += 1
+        if count[0] in (1, 3, 23):
+            torch.cuda.synchronize()
+            stamps[count[0]] = time.perf_counter()
+        if count[0] == 1:
+            first_loss.append(float(m["loss"]))
+        return m
+
+    buf = io.StringIO()
+    fit_mod.train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        fit_mod.train_step = real_step
+    torch.cuda.synchronize()
+    launches = dict(KERNEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    if rc != 0 or len(lines) != 1 or count[0] != 23:
+        raise AssertionError(f"train --speech-dir failed: rc {rc}, {count[0]} steps, "
+                             f"{len(lines)} output lines")
+    final = lines[0]
+    steps_per_s = 20 / (stamps[23] - stamps[3])
+    log(f"fit (B=16, 23 steps, full SpecUNet_2D): steps/s={steps_per_s:.3f} "
+        f"clips/s={16 * steps_per_s:.1f} after 3 warm steps; first 3 steps "
+        f"{stamps[3] - t0:.3f} s; command wall {wall:.3f} s; peak "
+        f"max_memory_allocated={peak / 2**30:.3f} GiB; loss first {first_loss[0]:.5f} "
+        f"last {final['loss']:.5f} | {smi}")
+    log("fit kernel launches:", json.dumps(launches))
+    if not all(np.isfinite(v) for v in [first_loss[0], *final.values()]):
+        raise AssertionError("fit: a loss is not finite")
+    if any(launches.get(k, 0) for k in KERNELS):
+        raise AssertionError("the host trainer launched a mel or wire kernel")
+
+    # the host batch's split, synchronized at each boundary
+    rng = np.random.default_rng(1)
+    speech = ClipSampler(list_wavs(speech_dir), rng, tile_short=False)
+    noise = ClipSampler(list_wavs(noise_dir), rng, tile_short=True)
+    state = create_train_state(0, device="cuda")
+    split = {"read": [], "augment": [], "mel": [], "step": []}
+    for i in range(8):
+        t = time.perf_counter()
+        sb, nb = speech.batch(16), noise.batch(16)
+        t_read = time.perf_counter() - t
+        tm = {}
+        batch = build_batch(sb, nb, rng, FIT_AUGS, device="cuda", timings=tm)
+        t = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= 3:
+            for k, v in (("read", t_read), ("augment", tm["augment"]), ("mel", tm["mel"]),
+                         ("step", time.perf_counter() - t)):
+                split[k].append(1e3 * v)
+    med = {k: float(np.median(v)) for k, v in split.items()}
+    log("fit per step, median of 5 after 3 warm (ms): "
+        f"reads+resample {med['read']:.2f}, augmentation {med['augment']:.2f}, "
+        f"mel {med['mel']:.2f}, train step {med['step']:.2f}; host share "
+        f"{(med['read'] + med['augment'] + med['mel']) / sum(med.values()):.3f} | {smi}")
+    fit_card_vs_cpu(sb, nb, smi)
+
+    det = Detector(checkpoint_path=pth)
+    res = det.detect_file_streaming(wav60)
+    log(f"fit checkpoint (epoch {det.epoch}) in Detector on the card ({det.pipeline}): "
+        f"windows={res.num_windows} intervals={len(res.intervals)}")
+    if det.epoch != 23 or not np.isfinite(res.avg_values).all() or res.num_windows < 1:
+        raise AssertionError("the fit checkpoint does not run in Detector")
+    log(f"fit phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches.get(k, 0) for k in KERNELS}
+
+
+def _ogg_page(body: bytes, flags: int) -> bytes:
+    """One Ogg page around ``body`` (CRC left 0: the sniffers parse the
+    header only)."""
+    lacing = [255] * (len(body) // 255) + [len(body) % 255]
+    return (b"OggS\x00" + bytes([flags]) + bytes(8) + (0x5353).to_bytes(4, "little")
+            + bytes(8) + bytes([len(lacing)]) + bytes(lacing) + body)
+
+
+def _codec_stub(path: str, fmt: str) -> str:
+    """A file each sniffer routes to its codec reader, for a host where the
+    codec's library does not load: an MPEG frame header, an Ogg page with a
+    Vorbis identification header, an Ogg BOS page with an OpusHead."""
+    head = {
+        "mp3": b"\xff\xfb\x90\x64" + bytes(412),
+        "vorbis": _ogg_page(b"\x01vorbis" + bytes(23), 0x02),
+        "opus": _ogg_page(b"OpusHead\x01\x01" + (312).to_bytes(2, "little")
+                          + (48000).to_bytes(4, "little") + bytes(3), 0x02),
+    }[fmt]
+    with open(path, "wb") as f:
+        f.write(head)
+    return path
+
+
+def phase_codecs(work: str, smi: str, seconds: float = 120.0, device: str = "cuda") -> dict:
+    """Slice 12: the MP3, Ogg Vorbis and Opus readers.  For each format
+    whose libraries load: a ``seconds`` file from its encoder (32 kHz; Opus,
+    whose encoder takes no 32 kHz input, at 48 kHz) and a float32 WAV of its
+    decoded samples, trained weights, fused fast mode: the grids bit-equal,
+    each rate in audio-s/wall-s.  For each format whose library is absent:
+    probe raises the codec's format error naming the library, load_audio
+    gives (None, None), detect raises, and ``DetectRunner`` records the file
+    and finishes the next one, as the JAX package does on such a host.
+    Returns, per format, each kernel's launches over the timed detection
+    of its compressed file, or None where its library is absent (nothing
+    ran, so nothing was counted)."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.io import audio, mp3, oggvorbis, opus, wavio
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES, reset_launch_counts
+    from softspoken_tpu_torch.project import DetectionStore
+    from softspoken_tpu_torch.runtime import DetectRunner
+
+    t_phase = time.perf_counter()
+    log("codec libraries:", codec_libraries())
+    cdir = os.path.join(work, "codecs")
+    shutil.rmtree(cdir, ignore_errors=True)
+    os.makedirs(cdir)
+    formats = (("mp3", mp3, mp3.encoder_available, mp3.Mp3FormatError, "libmpg123"),
+               ("vorbis", oggvorbis, oggvorbis.available, oggvorbis.OggFormatError,
+                "libvorbis"),
+               ("opus", opus, opus.available, opus.OpusFormatError, "libogg + libopus"))
+    det = Detector(Config().with_engine(pipeline="fused"), device=device)
+    good = os.path.join(cdir, "good.wav")
+    _field_wav(good, 10.0, 32000, seed=3)
+    launches = {}
+    for fmt, mod, can_encode, error, lib in formats:
+        launches[fmt] = None
+        if mod.available() and can_encode():
+            sr = 48000 if fmt == "opus" else 32000
+            x = _field_signal(seconds, sr, seed=21)
+            path = os.path.join(cdir, f"field.{'ogg' if fmt == 'vorbis' else fmt}")
+            {"mp3": lambda: mp3.write_mp3(path, x, sr),
+             "vorbis": lambda: oggvorbis.write_vorbis(path, x, sr),
+             "opus": lambda: opus.write_opus(path, x, sr)}[fmt]()
+            decoded, nsr = audio.read_any(path)
+            ref = os.path.join(cdir, f"{fmt}_decoded.wav")
+            wavio.write(ref, decoded, nsr, subtype="FLOAT")
+            rates = {}
+            for p in (path, ref):
+                det.detect_file_streaming(p)  # warm
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                res = det.detect_file_streaming(p)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                rates[p] = (res, res.audio_seconds / (time.perf_counter() - t0))
+                if p == path:
+                    launches[fmt] = {k: KERNEL_LAUNCHES.get(k, 0) for k in KERNELS}
+            (rc, rate_c), (rw, rate_w) = rates[path], rates[ref]
+            log(f"codecs {fmt}: {seconds:.0f} s at {sr} Hz, {os.path.getsize(path)} bytes; "
+                f"compressed {rate_c:.2f} audio-s/wall-s, its float WAV {rate_w:.2f}; "
+                f"grids bit-equal {np.array_equal(rc.avg_values, rw.avg_values)} | {smi}")
+            if not np.array_equal(rc.avg_values, rw.avg_values) or rc.intervals != rw.intervals:
+                raise AssertionError(f"{fmt}: the fused grid differs from its decoded WAV's")
+            continue
+        path = _codec_stub(os.path.join(cdir, f"stub.{fmt}"), fmt)
+        try:
+            audio.probe(path)
+            raise AssertionError(f"{fmt}: probe read a file whose library is absent")
+        except error as e:
+            if "not found" not in str(e):
+                raise AssertionError(f"{fmt}: unexpected error {e!r}")
+            why = str(e)
+        if audio.load_audio(path) != (None, None):
+            raise AssertionError(f"{fmt}: load_audio did not fail as a decode failure")
+        try:
+            det.detect_file_streaming(path)
+            raise AssertionError(f"{fmt}: detect ran on a file whose library is absent")
+        except error:
+            pass
+        store = DetectionStore(os.path.join(cdir, f"{fmt}.csv"))
+        report = DetectRunner(det, store).run([path, good])
+        if report.files_done != 1 or set(report.errors) != {path}:
+            raise AssertionError(f"{fmt}: the runner did not record the file and go on: "
+                                 f"{report.errors}")
+        log(f"codecs {fmt}: {lib} absent — probe and detect raise "
+            f"{error.__name__}: {why!r}; "
+            f"load_audio (None, None); the runner recorded "
+            f"{report.errors[path]!r} and finished the next file; no number claimed")
+    log(f"codecs phase {time.perf_counter() - t_phase:.1f} s; kernel launches on each "
+        f"compressed file (null: not run): {json.dumps(launches)}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
@@ -2487,6 +2858,12 @@ def main() -> int:
         phase_first_detect(wav, smi)
         k1.update(phase_bench(work, warm_rate, smi))
         k1["launches_gui"] = phase_gui(work, smi)
+        fit_launches = phase_fit(work, wav60, smi)
+        codec_launches = phase_codecs(work, smi)
+        for rec in (k1, k2, k3):
+            rec["launches_fit"] = fit_launches[rec["name"]]
+            rec["launches_codecs"] = {fmt: None if n is None else n[rec["name"]]
+                                      for fmt, n in codec_launches.items()}
         os.remove(wav)
         os.remove(wav60)
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -8,7 +8,8 @@
   review        — list/grade/keep/erase/add/delete detections, re-run the
                   exporters, render a spectrogram PNG, export a segment WAV
   silence       — mute the erased intervals and write *_silenced.wav
-  train         — ``train --synthetic --steps N --out model.pth``
+  train         — ``train --synthetic --steps N --out model.pth``, or from
+                  WAV directories: ``train --speech-dir S --noise-dir N``
   eval          — F1 of the detector on labeled audio (``--make-synthetic
                   DIR`` synthesizes a labeled eval set first)
   doctor        — one JSON report of the environment: the card, the
@@ -25,8 +26,8 @@ CUDA card by default (``--device cpu`` to run on the CPU; so do ``train``,
 weights of ``root/models/spec_unet_2d/model_checkpoint.pth`` unless
 ``--checkpoint`` (``eval --ckpt``) or ``--random-init`` says otherwise.
 They read WAV (RF64, RIFX, G.711, ADPCM), FLAC, AIFF/AIFC, W64, CAF, AU
-and SPHERE; ``detect`` records an MP3, Ogg Vorbis or Opus file as an error
-naming its format.  The pipeline, mel kernel and
+and SPHERE, and MP3, Ogg Vorbis and Opus where the system libraries load.
+The pipeline, mel kernel and
 resampler are chosen in the ``--config`` JSON (``{"engine": {"pipeline":
 "host", "mel_kernel": "pallas"}}``).  ``detect`` and ``silence`` print a
 JSON report and exit nonzero when any file failed; ``doctor`` exits nonzero
@@ -435,19 +436,33 @@ def _add_eval_parser(sub) -> None:
 
 def cmd_train(args) -> Dict:
     from .train import fit_synthetic
+    from .train.fit import fit
 
     if args.mesh:
         raise NotImplementedError(
             "train --mesh (multi-GPU) is not ported to softspoken_tpu_torch yet "
             "(ROADMAP.md §1, multi-GPU and the sharded steps)")
     if not args.synthetic:
-        if args.speech_dir or args.noise_dir:
-            raise NotImplementedError(
-                "train --speech-dir/--noise-dir (the host trainer `fit`, "
-                "train/data.py) is not ported to softspoken_tpu_torch yet "
-                "(ROADMAP.md §1, the host trainer)")
-        raise SystemExit("train: only --synthetic is ported "
-                         "(the host trainer is not, see ROADMAP.md)")
+        if not (args.speech_dir and args.noise_dir):
+            raise SystemExit("train: need --speech-dir and --noise-dir "
+                             "(or use --synthetic)")
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+        metrics = fit(
+            args.speech_dir,
+            args.noise_dir,
+            steps=args.steps,
+            batch_size=args.batch_size,
+            learning_rate=args.lr,
+            ckpt_out=args.out,
+            augmentations=args.augment,
+            seed=args.seed,
+            resume=args.resume,
+            train_dtype=args.dtype,
+            boundary_weight=args.boundary_weight,
+            device=args.device,
+        )
+        print(json.dumps(metrics), flush=True)
+        return metrics
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     metrics = fit_synthetic(
         steps=args.steps,
@@ -476,10 +491,11 @@ def cmd_train(args) -> Dict:
 
 
 def _add_train_parser(sub) -> None:
-    """The JAX CLI's ``train`` flags; ``--out`` and ``--resume`` are .pth."""
-    pt = sub.add_parser("train", help="train SpecUNet_2D (--synthetic)")
-    pt.add_argument("--speech-dir", help="clean-speech WAVs (not ported yet)")
-    pt.add_argument("--noise-dir", help="environment WAVs (not ported yet)")
+    """The JAX CLI's ``train`` flags, plus ``--device``; ``--out`` and
+    ``--resume`` are .pth."""
+    pt = sub.add_parser("train", help="train SpecUNet_2D")
+    pt.add_argument("--speech-dir", help="clean-speech WAVs (omit with --synthetic)")
+    pt.add_argument("--noise-dir", help="environment WAVs (omit with --synthetic)")
     pt.add_argument("--synthetic", action="store_true",
                     help="train from the synthetic corpus with fully on-device "
                          "batch synthesis (train/synth.py + device_data.py)")
@@ -572,10 +588,9 @@ def cmd_doctor(args) -> int:
     The device probes run on watchdog threads (``--device-timeout``), so a
     hung CUDA runtime still gives a report.  A missing card or a kernel
     that does not build is an ERROR status and a nonzero exit code, never a
-    quiet switch to the CPU.  The MP3, Ogg Vorbis and Opus readers are not ported:
-    those keys say so, with whether the system library loads.
+    quiet switch to the CPU.  A codec library that does not load is the JAX
+    package's ``MISSING`` status, not an error.
     """
-    import ctypes
     import threading
 
     cfg = _load_config(args)
@@ -611,16 +626,15 @@ def cmd_doctor(args) -> int:
         "status": "ok" if native.native_available() else "MISSING (numpy fallbacks active)"}
     report["native_flac"] = {
         "status": "ok" if flac.flac_available() else "MISSING (FLAC undecodable)"}
-    for key, fmt, lib in (("libvorbis", "Ogg Vorbis", "libvorbisfile.so.3"),
-                          ("libmpg123", "MP3", "libmpg123.so.0"),
-                          ("libopus", "Ogg Opus", "libopus.so.0")):
+    from .io import mp3, oggvorbis, opus
+
+    for key, mod, missing in (("libvorbis", oggvorbis, "MISSING (OGG undecodable)"),
+                              ("libmpg123", mp3, "MISSING (MP3 undecodable)"),
+                              ("libopus", opus, "MISSING (Ogg/Opus undecodable)")):
         try:
-            ctypes.CDLL(lib)
-            loads = "loads"
-        except OSError:
-            loads = "absent"
-        report[key] = {"status": f"NOT PORTED ({fmt} undecodable by "
-                                 f"softspoken_tpu_torch; {lib} {loads})"}
+            report[key] = {"status": "ok" if mod.available() else missing}
+        except Exception as e:  # noqa: BLE001
+            report[key] = {"status": f"ERROR: {e}"}
     ckpt_path = os.path.join(cfg.paths.model_dir, cfg.paths.model_name)
     if os.path.isfile(ckpt_path):
         report["checkpoint"] = {"status": "ok", "path": ckpt_path}

@@ -51,7 +51,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..io import flac, wavio
+from ..io import flac, mp3, opus, wavio
 from ..io.audio import probe, read_mono
 from ..io.decimate import WireDecimator, decim_factor
 from ..io.resample import _ratio, polyphase_apply, polyphase_block_geometry
@@ -192,6 +192,8 @@ class FusedStreamingEngine:
             rows = vals.new_zeros((p, k, self.glen))
             for g, off in enumerate(place):
                 grp = vals[:, g::p]
+                if grp.shape[1] == 0:  # a chunk of fewer than p windows
+                    continue
                 rows[g, :, off: off + grp.shape[1] * 256].view(k, -1, 256).copy_(grp)
             out = rows[0]
             for g in range(1, p):
@@ -215,7 +217,9 @@ class FusedStreamingEngine:
             raise RuntimeError("a chunk without windows")
         if self._tile_p is not None:
             p = self._tile_p
-            place = [int(bins[g]) for g in range(p)]
+            # a group g >= chunk_w has no windows and places nothing, as the
+            # JAX package's dynamic_update_slice of an empty group
+            place = [int(bins[g]) if g < self.chunk_w else 0 for g in range(p)]
             for g, off in enumerate(place):
                 n_g = len(range(g, self.chunk_w, p))
                 if off < 0 or off + 256 * n_g > self.glen:
@@ -608,9 +612,10 @@ def detect_file_fused(
       * on a lossy wire, mono PCM_24/PCM_32/PCM_U8 WAV streams its top 16
         bits on the mulaw8 wire, whatever the codec (as the JAX package
         does, ``adpcm4`` included);
-      * every other readable format is decoded and downmixed on the host
-        (``read_mono``) and rides the float32 wire, or a lossy wire as
-        int16.
+      * MP3 and Ogg Opus decode on one persistent sequential reader;
+      * every other readable format (Ogg Vorbis among them) is decoded and
+        downmixed on the host (``read_mono``) and rides the float32 wire,
+        or a lossy wire as int16.
 
     Each int16 stream on a lossy wire goes through ``_maybe_wire_decimate``.
     With ``journal_dir`` set, chunk progress persists there and a killed run
@@ -654,6 +659,17 @@ def detect_file_fused(
                 detector, read_top16, inf.frames, inf.samplerate, "mulaw8")
             engine = get_fused_engine(detector, sr, "mulaw8")
             return engine.run(rd, nfr, progress, journal, timers=timers)
+
+    if inf.subtype == "OPUS" or inf.subtype.startswith("MPEG"):
+        # one persistent handle: a per-chunk read would re-open the file and
+        # re-scan an MP3 or re-enter an Opus stream with its pre-roll (no
+        # longer bit-exact at the seams); Opus serves the backward chunk
+        # overlap from the reader's history
+        seq = opus if inf.subtype == "OPUS" else mp3
+        with seq.SequentialMonoReader(path) as smr:
+            return _run_mono_f32_source(detector, smr.read, inf.frames,
+                                        inf.samplerate, progress, journal,
+                                        timers=timers)
 
     def read_f32(start: int, frames: int) -> np.ndarray:
         return read_mono(path, start=start, frames=frames)[0]

@@ -5,8 +5,9 @@ Mirrors the behaviour (not the implementation) of the reference's
 ``io/audio.py``:
 
   * ``probe`` / ``read_any`` — format sniffing in the JAX package's order:
-                                WAV/RF64/RIFX, FLAC, AIFF/AIFC, then the
-                                PCM containers (W64, CAF, AU, SPHERE)
+                                WAV/RF64/RIFX, FLAC, AIFF/AIFC, Ogg (Opus,
+                                else Vorbis), the PCM containers (W64, CAF,
+                                AU, SPHERE), then MP3
   * ``get_audio_data``        — voice_activity.py:23-30 (header-only probe)
   * ``load_audio``            — voice_activity.py:32-69 (whole file or a 3 s
                                 slice, channel-mean downmix, resample to
@@ -17,8 +18,9 @@ Mirrors the behaviour (not the implementation) of the reference's
                                 multi-hour recordings (the host pipeline's
                                 streaming decode)
 
-MP3, Ogg Vorbis and Opus raise ``NotImplementedError`` naming the format:
-their readers are a later slice of the port.
+MP3, Ogg Vorbis and Opus decode through the system libraries
+(``mp3``, ``oggvorbis``, ``opus``); where a library does not load, its
+reader raises its format error, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,21 +35,23 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG
-from . import aiff, au, caf, flac, native, sphere, w64, wavio
+from . import aiff, au, caf, flac, mp3, native, oggvorbis, opus, sphere, w64, wavio
 from .resample import design_taps, get_device_resampler, resample, resampled_length
 
 log = logging.getLogger(__name__)
 
 _SR = DEFAULT_CONFIG.dsp.sample_rate  # 22050
-# what a corrupt or truncated file raises while it is read (every reader's
-# format error is a ValueError); NotImplementedError is not among them
-_DECODE_ERRORS = (OSError, ValueError, struct.error)
+# what a corrupt or truncated file raises while it is read: every PCM
+# reader's format error is a ValueError, and the codec readers raise their
+# own, also where their system library is missing
+_DECODE_ERRORS = (OSError, ValueError, struct.error, mp3.Mp3FormatError,
+                  oggvorbis.OggFormatError, opus.OpusFormatError)
 
 
 def _pcm_container_mods():
     """(is_x, info, read) per self-contained PCM container reader, checked
-    after FLAC and AIFF: their magics are exact, where MP3's sniff could
-    match raw PCM payloads."""
+    after the framed codecs and before MP3: MP3's sniff could match raw PCM
+    payloads, where these containers' magics are exact."""
     return (
         (w64.is_w64, w64.info, w64.read),
         (caf.is_caf, caf.info, caf.read),
@@ -56,52 +60,10 @@ def _pcm_container_mods():
     )
 
 
-def _mp3_frame_header(b: bytes) -> bool:
-    """A structurally valid MPEG audio frame header (the JAX package's
-    ``mp3._valid_frame_header``)."""
-    if len(b) < 4 or b[0] != 0xFF or (b[1] & 0xE0) != 0xE0:
-        return False
-    if (b[1] >> 3) & 0x3 == 1 or (b[1] >> 1) & 0x3 == 0:  # reserved version, layer
-        return False
-    if b[2] >> 4 in (0, 15):                              # free-format / invalid bitrate
-        return False
-    return (b[2] >> 2) & 0x3 != 3                         # reserved samplerate
-
-
-def _head(path: str, n: int) -> bytes:
-    try:
-        with open(path, "rb") as f:
-            return f.read(n)
-    except OSError:
-        return b""
-
-
-def _raise_unported(fmt: Optional[str]) -> None:
-    if fmt is not None:
-        raise NotImplementedError(
-            f"{fmt} file: this reader is a later slice of the PyTorch port; "
-            "convert the file to WAV or FLAC")
-
-
-def _ogg_format(path: str) -> Optional[str]:
-    """"Ogg Opus" / "Ogg Vorbis" for an Ogg file, else None."""
-    head = _head(path, 65536)
-    if head[:4] != b"OggS":
-        return None
-    return "Ogg Opus" if b"OpusHead" in head else "Ogg Vorbis"
-
-
-def _mp3_format(path: str) -> Optional[str]:
-    """"MP3" for an ID3 tag or a valid MPEG frame header at byte 0, else None
-    (the JAX package's ``mp3.is_mp3``)."""
-    head = _head(path, 4)
-    return "MP3" if head[:3] == b"ID3" or _mp3_frame_header(head) else None
-
-
 def probe(path: str):
     """Format-sniffing header probe: ``WavInfo``, ``FlacInfo`` or another
-    container's info, all with samplerate / channels / frames / subtype /
-    bits_per_sample / duration."""
+    container's or codec's info, all with samplerate / channels / frames /
+    subtype / bits_per_sample / duration."""
     try:
         return wavio.info(path)
     except wavio.WavFormatError:
@@ -109,11 +71,16 @@ def probe(path: str):
             return flac.info(path)
         if aiff.is_aiff(path):
             return aiff.info(path)
-        _raise_unported(_ogg_format(path))
+        if oggvorbis.is_ogg(path):
+            # Opus rides the same Ogg container: sniff the BOS packet type
+            if opus.is_opus(path):
+                return opus.info(path)
+            return oggvorbis.info(path)
         for is_x, info_x, _read in _pcm_container_mods():
             if is_x(path):
                 return info_x(path)
-        _raise_unported(_mp3_format(path))
+        if mp3.is_mp3(path):
+            return mp3.info(path)
         raise
 
 
@@ -128,11 +95,14 @@ def read_any(
             return flac.read(path, start=start, frames=frames, always_2d=always_2d)
         if aiff.is_aiff(path):
             return aiff.read(path, start=start, frames=frames, always_2d=always_2d)
-        _raise_unported(_ogg_format(path))
+        if oggvorbis.is_ogg(path):
+            reader = opus.read if opus.is_opus(path) else oggvorbis.read
+            return reader(path, start=start, frames=frames, always_2d=always_2d)
         for is_x, _info, read_x in _pcm_container_mods():
             if is_x(path):
                 return read_x(path, start=start, frames=frames, always_2d=always_2d)
-        _raise_unported(_mp3_format(path))
+        if mp3.is_mp3(path):
+            return mp3.read(path, start=start, frames=frames, always_2d=always_2d)
         raise
 
 
@@ -177,9 +147,9 @@ def load_audio(
     downmix to mono and resample to ``target_sr``.
 
     ``start`` is in internal-rate samples, translated to the native rate as
-    the reference does (voice_activity.py:47-48).  A corrupt file gives
-    ``(None, None)`` (voice_activity.py:40-41); a format whose reader is not
-    ported raises ``NotImplementedError``.
+    the reference does (voice_activity.py:47-48).  A corrupt file, or one
+    whose codec library does not load, gives ``(None, None)``
+    (voice_activity.py:40-41).
     """
     try:
         if start is None:
@@ -252,9 +222,11 @@ def stream_chunks(
     round-off.  ``backend``: "host" (native/scipy polyphase) or "device"
     (one polyphase GEMM per chunk on ``device``, default the CUDA card).
     One persistent reader serves the whole file: FLAC's sequential decoder
-    (FLAC has no byte index, so a reopen would decode from the start), or a
-    PCM16 WAV handle with readahead hints; both are closed when the
-    generator ends or is dropped.
+    (FLAC has no byte index, so a reopen would decode from the start), an
+    MP3 handle (a per-range read would re-scan the whole file), an Opus
+    forward-only handle (a per-range read would re-enter with pre-roll and
+    lose bit-exactness at the seams), or a PCM16 WAV handle with readahead
+    hints; each is closed when the generator ends or is dropped.
     """
     if backend not in ("host", "device"):
         raise ValueError(f"unknown resample backend {backend!r}")
@@ -264,6 +236,12 @@ def stream_chunks(
     handle = None
     if inf.subtype.startswith("FLAC"):
         handle = flac.SequentialMonoReader(path)
+        read_native = handle.read
+    elif inf.subtype.startswith("MPEG"):
+        handle = mp3.SequentialMonoReader(path)
+        read_native = handle.read
+    elif inf.subtype == "OPUS":
+        handle = opus.SequentialMonoReader(path)
         read_native = handle.read
     elif isinstance(inf, wavio.WavInfo) and inf.subtype == "PCM_16":
         handle = wavio.RawReader(path)

@@ -1,32 +1,39 @@
-"""Training driver: ``fit_synthetic``, the on-device synthetic trainer (the
-JAX package's ``train/fit.py``).
+"""The trainers (the JAX package's ``train/fit.py``):
 
-The host makes two clip pools from a seed (``train/synth.py``) and uploads
-them once; every step then runs on the device (``train/device_data.py``):
+  * ``fit`` trains from directories of speech and noise recordings: random
+    3 s clips read on the host (``ClipSampler``), mixed at a random SNR and
+    augmented, their mels and targets computed on the device
+    (``train/data.py::build_batch``), then one optimizer step;
+  * ``fit_synthetic`` trains from the synthetic corpus, every step on the
+    device.
+
+For ``fit_synthetic`` the host makes two clip pools from a seed
+(``train/synth.py``) and uploads them once; every step then runs on the
+device (``train/device_data.py``):
 draws, synthesis, mel, targets, forward, backward and the AdamW update.
 Fresh pools are generated on a background thread and swapped in through a
 pinned host copy, so host work never blocks the device.  Checkpoints are
 reference ``.pth`` files (``ckpt.save_pth``) that the port's ``Detector``
 and the JAX package's ``ckpt.load_pth`` both read.
-
-The host trainer ``fit`` (WAV directories, ``train/data.py``) is not ported
-yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import glob
 import logging
 import os
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import ckpt as ckpt_mod
 from ..engine.detector import resolve_device
-from .loop import DTYPES, TrainState, create_train_state
+from ..io import internal_length, load_audio
+from . import data as D
+from .loop import DTYPES, TrainState, create_train_state, train_step
 
 log = logging.getLogger(__name__)
 
@@ -40,6 +47,105 @@ def _save_checkpoint(ckpt_out: str, state: TrainState, epoch: int, fatal: bool) 
         if fatal:
             raise
         log.exception("checkpoint save failed at step %d (continuing)", epoch)
+
+
+def list_wavs(directory: str) -> List[str]:
+    return sorted(glob.glob(os.path.join(directory, "**", "*.wav"), recursive=True))
+
+
+class ClipSampler:
+    """Random 3 s internal-rate clips from a file pool (bounded reads)."""
+
+    def __init__(self, files: Sequence[str], rng: np.random.Generator, tile_short: bool):
+        if not files:
+            raise ValueError("empty file pool")
+        self.files = list(files)
+        self.rng = rng
+        self.tile_short = tile_short
+        self._lengths = {f: internal_length(f) for f in self.files}
+
+    def sample(self) -> np.ndarray:
+        f = self.files[int(self.rng.integers(len(self.files)))]
+        n = self._lengths[f]
+        start = int(self.rng.integers(max(1, n - D.CLIP + 1)))
+        if self.tile_short and n < D.CLIP:
+            # a random tiling phase: start 0 would make every draw of a
+            # sub-3 s file the same clip (the reference rotates start_idx
+            # into the tiled read the same way)
+            clip = D.load_environmental_noise(f, int(self.rng.integers(max(1, n))))
+            if clip is not None:
+                return clip
+        wav, _ = load_audio(f, start=start)
+        clip = np.zeros(D.CLIP, np.float32)
+        if wav is not None:
+            m = min(len(wav), D.CLIP)
+            clip[:m] = wav[:m]
+        return clip
+
+    def batch(self, b: int) -> np.ndarray:
+        return np.stack([self.sample() for _ in range(b)])
+
+
+def fit(
+    speech_dir: str,
+    noise_dir: str,
+    steps: int = 1000,
+    batch_size: int = 16,
+    learning_rate: float = 1e-3,
+    ckpt_out: Optional[str] = None,
+    augmentations: Sequence[str] = ("add_reverb", "reduce_volume", "bandpass_filter"),
+    seed: int = 0,
+    mesh=None,
+    log_every: int = 20,
+    save_every: int = 200,
+    on_metrics=None,
+    resume: Optional[str] = None,
+    train_dtype: str = "float32",
+    boundary_weight: float = 0.0,
+    device=None,
+) -> Dict[str, float]:
+    """Train from the WAVs under ``speech_dir`` and ``noise_dir``; returns
+    the last logged metrics.
+
+    Each step draws ``batch_size`` speech and noise clips on the host,
+    builds the batch on ``device`` (the CUDA card unless the caller passes
+    ``"cpu"``; raises without a card) and takes one optimizer step.  Every
+    ``log_every`` steps and at the last, the losses are read once, logged
+    and passed to ``on_metrics(step, metrics)``.  ``mesh``
+    (multi-GPU) is not ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh training is not ported to softspoken_tpu_torch yet "
+            "(ROADMAP.md §1, multi-GPU and the sharded steps)")
+    if train_dtype not in DTYPES:
+        raise ValueError(f"train_dtype must be one of {sorted(DTYPES)}, got {train_dtype!r}")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    speech = ClipSampler(list_wavs(speech_dir), rng, tile_short=False)
+    noise = ClipSampler(list_wavs(noise_dir), rng, tile_short=True)
+    state = create_train_state(seed, learning_rate, resume=resume,
+                               compute_dtype=DTYPES[train_dtype], device=dev)
+    step0 = state.step
+
+    metrics: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    for step in range(1, steps + 1):
+        batch = D.build_batch(speech.batch(batch_size), noise.batch(batch_size), rng,
+                              augmentations=augmentations, device=dev)
+        m = train_step(state, batch, boundary_weight)
+        if step % log_every == 0 or step == steps:
+            names = sorted(m)
+            values = torch.stack([m[k] for k in names]).tolist()  # the one read
+            metrics = dict(zip(names, values))
+            log.info("step %d  loss=%.4f  mask=%.4f  spec=%.4f  (%.1f clips/s)",
+                     step, metrics["loss"], metrics["mask_loss"], metrics["spec_loss"],
+                     step * batch_size / (time.perf_counter() - t0))
+            if on_metrics:
+                on_metrics(step, metrics)
+        if ckpt_out and (step % save_every == 0 or step == steps):
+            _save_checkpoint(ckpt_out, state, step0 + step, fatal=step == steps)
+    return metrics
 
 
 def _host_pools(pools, pin: bool):

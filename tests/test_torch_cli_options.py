@@ -128,5 +128,10 @@ def test_doctor_reports_the_missing_card_as_an_error(tmp_path):
     assert report["kernels"]["status"] == "ERROR"
     assert report["checkpoint"]["status"] == "ok"
     assert report["summary"].startswith("attention: ") and "device" in report["summary"]
-    for key in ("libvorbis", "libmpg123", "libopus"):
-        assert report[key]["status"].startswith("NOT PORTED")
+    # the codec keys are the JAX doctor's statuses
+    from softspoken_tpu.io import mp3, oggvorbis, opus
+
+    for key, mod, missing in (("libvorbis", oggvorbis, "MISSING (OGG undecodable)"),
+                              ("libmpg123", mp3, "MISSING (MP3 undecodable)"),
+                              ("libopus", opus, "MISSING (Ogg/Opus undecodable)")):
+        assert report[key] == {"status": "ok" if mod.available() else missing}

@@ -3,8 +3,8 @@ WAV subtypes (RIFX, wide integers, G.711, MS-ADPCM, IMA-ADPCM) against the
 JAX package's: for every (format, subtype) the header probe, the samples of
 ``read_any`` (whole file and a range), ``read_mono`` and ``load_audio`` are
 exactly equal.  Files are written with the JAX tests' own writers.  MP3,
-Ogg Vorbis and Opus are not ported and raise ``NotImplementedError`` naming
-the format."""
+Ogg Vorbis and Opus files, written with the JAX package's encoders, go
+through the same dispatch in the JAX order and read the same samples."""
 
 import struct
 
@@ -160,20 +160,56 @@ def test_reader_equals_jax(tmp_path, kind):
     assert audio.get_audio_data(p) == jaudio.get_audio_data(p)
 
 
+def _codec_file(path, fmt):
+    """A 4 s 22,050 Hz (Opus: 48 kHz) tone in ``fmt``, written with the JAX
+    package's encoder; "mp3-id3" puts an ID3v2 tag in front of the first
+    frame, as taggers do."""
+    from softspoken_tpu.io import mp3, oggvorbis, opus
+
+    sr = 48000 if fmt == "opus" else 22050
+    x = (0.3 * np.sin(2 * np.pi * 440 * np.arange(4 * sr) / sr)).astype(np.float32)
+    if fmt.startswith("mp3"):
+        mp3.write_mp3(path, x, sr)
+        if fmt == "mp3-id3":
+            with open(path, "rb") as f:
+                body = f.read()
+            with open(path, "wb") as f:  # ID3v2.4, no flags, 60 bytes of padding
+                f.write(b"ID3\x04\x00\x00" + bytes([0, 0, 0, 60]) + bytes(60) + body)
+    elif fmt == "vorbis":
+        oggvorbis.write_vorbis(path, x, sr)
+    else:
+        opus.write_opus(path, x, sr)
+    return path
+
+
 @pytest.mark.parametrize("fmt,head", [
-    ("MP3", b"ID3\x04\x00" + bytes(60)),
-    ("MP3", b"\xff\xfb\x90\x64" + bytes(60)),
-    ("Ogg Vorbis", b"OggS" + bytes(24) + b"\x01vorbis" + bytes(30)),
-    ("Ogg Opus", b"OggS" + bytes(24) + b"OpusHead" + bytes(30)),
+    ("mp3-id3", b"ID3"),
+    ("mp3-frame", b"\xff"),
+    ("vorbis", b"OggS"),
+    ("opus", b"OggS"),
 ], ids=["mp3-id3", "mp3-frame", "vorbis", "opus"])
 def test_unported_formats_raise_naming_the_format(tmp_path, fmt, head):
-    p = str(tmp_path / "x.bin")
-    with open(p, "wb") as f:
-        f.write(head)
-    for call in (audio.probe, audio.read_any, audio.load_audio, audio.get_audio_data,
-                 audio.internal_length):
-        with pytest.raises(NotImplementedError, match=fmt):
-            call(p)
+    """The formats that once raised here now read: probe, read_any,
+    load_audio, get_audio_data and internal_length on a real file of each
+    equal the JAX package's, bit for bit (the same system library decodes
+    on both sides)."""
+    p = _codec_file(str(tmp_path / "x.bin"), fmt)
+    with open(p, "rb") as f:
+        assert f.read(len(head)) == head
+    inf, jinf = audio.probe(p), jaudio.probe(p)
+    assert [getattr(inf, k) for k in _FIELDS] == [getattr(jinf, k) for k in _FIELDS]
+    assert inf.frames > 1000
+    for kw in ({}, dict(start=777, frames=2345)):
+        got, sr = audio.read_any(p, **kw)
+        want, jsr = jaudio.read_any(p, **kw)
+        assert sr == jsr and got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    got, sr = audio.load_audio(p)
+    want, jsr = jaudio.load_audio(p)
+    assert sr == jsr == 22050
+    np.testing.assert_array_equal(got, want)
+    assert audio.get_audio_data(p) == jaudio.get_audio_data(p)
+    assert audio.internal_length(p) == jaudio.internal_length(p)
 
 
 def test_corrupt_container_is_a_decode_failure(tmp_path):
@@ -181,6 +217,119 @@ def test_corrupt_container_is_a_decode_failure(tmp_path):
     with open(p, "r+b") as f:
         f.truncate(30)
     assert audio.load_audio(p) == (None, None) == jaudio.load_audio(p)
+
+
+def _mxcsr():
+    """The calling thread's MXCSR on x86-64 (rounding mode in bits 13-14,
+    FTZ bit 15, DAZ bit 6), read by a four-byte ``stmxcsr [rdi]; ret``
+    stub; None where that cannot run."""
+    import ctypes
+    import mmap
+    import platform
+
+    if platform.machine() not in ("x86_64", "AMD64"):
+        return None
+    try:
+        buf = mmap.mmap(-1, mmap.PAGESIZE,
+                        prot=mmap.PROT_READ | mmap.PROT_WRITE | mmap.PROT_EXEC)
+    except (OSError, ValueError, AttributeError):
+        return None
+    buf.write(b"\x0f\xae\x1f\xc3")
+    fn = ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_uint32))(
+        ctypes.addressof(ctypes.c_char.from_buffer(buf)))
+    v = ctypes.c_uint32()
+    fn(ctypes.byref(v))
+    return v.value
+
+
+def _intra_op_fp_probe():
+    """What the intra-op threads' float mode does to a 2**20-element
+    operation, split across the team: the distinct results of 1 + 0.75 ulp,
+    1 + 0.25 ulp and -1 - 0.75 ulp (in ulps above 1; round to nearest gives
+    1, 0 and -1), and how many denormal products are flushed (FTZ/DAZ)."""
+    n, u = 1 << 20, 2.0 ** -23
+    one = torch.ones(n)
+    return {
+        "1+0.75ulp": sorted(((torch.unique(one + 0.75 * u) - 1) / u).tolist()),
+        "1+0.25ulp": sorted(((torch.unique(one + 0.25 * u) - 1) / u).tolist()),
+        "-1-0.75ulp": sorted(((torch.unique(-one - 0.75 * u) + 1) / u).tolist()),
+        "denormal inputs read as 0": int((torch.full((n,), 1e-39) * 1.0 == 0).sum()),
+        "denormal results flushed": int((torch.full((n,), 1e-38) * 0.01 == 0).sum()),
+    }
+
+
+def _first_difference(a, b):
+    if a.shape != b.shape:
+        return f"shapes {a.shape} and {b.shape}"
+    d = np.flatnonzero(a.reshape(-1) != b.reshape(-1))
+    if d.size == 0:
+        return "equal"
+    i = int(d[0])
+    return (f"{d.size} of {a.size} differ, first at {i}: "
+            f"{a.reshape(-1)[i]!r} vs {b.reshape(-1)[i]!r}")
+
+
+def _wire_mismatch_report(det, paths, grids):
+    """Evidence for a float32-wire/int16-wire grid mismatch, gathered in the
+    process where it happened: the differing bins; a second run of each
+    wire with the engine's decoded input, resampled input and logits
+    recorded, and the first difference of each stage; the two resampling
+    matrices' alignment; the thread team; the main thread's MXCSR and the
+    intra-op threads' float mode."""
+    import threading
+
+    import softspoken_tpu_torch.engine.fused as fused
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+
+    a, b = grids
+    d = np.flatnonzero(a != b)
+    out = [f"{d.size} of {a.size} bins differ: "
+           + ", ".join(f"{i}: {a[i]!r} vs {b[i]!r}" for i in d[:20])]
+    try:
+        stages = []
+        real_poly, real_fwd = fused.polyphase_apply, det._forward
+        for path in paths:
+            rec = {"decoded": [], "resampled": [], "logits": [], "align": []}
+
+            def poly(x, W, rec=rec, **kw):
+                y = real_poly(x, W, **kw)
+                rec["decoded"].append(x.detach().cpu().numpy().copy())
+                rec["resampled"].append(y.detach().cpu().numpy().copy())
+                rec["align"].append((x.data_ptr() % 64, W.data_ptr() % 64))
+                return y
+
+            def fwd(*args, rec=rec):
+                y = real_fwd(*args)
+                rec["logits"].append(y.detach().cpu().numpy().copy())
+                return y
+
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(fused, "polyphase_apply", poly)
+                mp.setattr(det, "_forward", fwd)
+                rec["grid"] = det.detect_file_streaming(path).avg_values
+            stages.append(rec)
+        f32, i16 = stages
+        out.append("second run: float32 wire grid vs first run "
+                   + _first_difference(f32["grid"], a) + "; int16 wire grid vs first run "
+                   + _first_difference(i16["grid"], b))
+        for k in ("decoded", "resampled", "logits"):
+            out.append(f"second run, {k} (float32 wire vs int16 wire): " + _first_difference(
+                np.concatenate([z.reshape(-1) for z in f32[k]]),
+                np.concatenate([z.reshape(-1) for z in i16[k]])))
+        out.append(f"(input, matrix) address mod 64: float32 wire {f32['align']}, "
+                   f"int16 wire {i16['align']}")
+        out.append("engine matrices address mod 64: " + ", ".join(
+            f"{kind} {get_fused_engine(det, 16000, kind).W.data_ptr() % 64}"
+            for kind in ("f32", "i16")))
+    except Exception as e:  # noqa: BLE001 — the report must not hide the failure
+        out.append(f"second run failed: {e!r}")
+    mx = _mxcsr()
+    out.append(f"main thread MXCSR {'unknown' if mx is None else hex(mx)}; "
+               f"intra-op float probe {_intra_op_fp_probe()}; "
+               f"torch threads {torch.get_num_threads()}, interop "
+               f"{torch.get_num_interop_threads()}, python threads {threading.active_count()}")
+    out.append(torch.__config__.parallel_info())
+    return "\n".join(out)
 
 
 @pytest.mark.parametrize("fmt", ["aiff", "w64"])
@@ -200,12 +349,75 @@ def test_fused_detect_on_a_container_is_bit_equal_to_the_wav(tmp_path, fmt):
     det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
                    device="cpu")
     rc, rw = det.detect_file_streaming(p), det.detect_file_streaming(wp)
-    np.testing.assert_array_equal(rc.avg_values, rw.avg_values)
+    report = ("" if np.array_equal(rc.avg_values, rw.avg_values) else
+              _wire_mismatch_report(det, (p, wp), (rc.avg_values, rw.avg_values)))
+    np.testing.assert_array_equal(rc.avg_values, rw.avg_values, err_msg=report)
     assert rc.intervals == rw.intervals
     ref = JDetector(JConfig().with_engine(**eng),
                     variables=jckpt.fixture_variables(seed=0)).detect_file_fused(p)
     np.testing.assert_allclose(rc.avg_values, ref.avg_values, atol=1e-5)
     assert rc.intervals == ref.intervals
+
+
+def test_the_wire_mismatch_report_gathers_its_evidence(tmp_path):
+    """The report that a mismatch of the test above prints, on a mismatch
+    made by hand: it names the bin, reruns both wires and compares their
+    stages (equal here), and reads the float state (round to nearest, no
+    flushing, as the suite runs)."""
+    x = _sig(3 * 16000, 1, seed=4)
+    p, wp = str(tmp_path / "x.aiff"), str(tmp_path / "x.wav")
+    write_aiff(p, _i16(x), 16000)
+    jwavio.write(wp, x, 16000, subtype="PCM_16")
+    eng = dict(precision="parity", device_batch=4, chunk_seconds=6.0, pipeline="fused")
+    det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
+                   device="cpu")
+    a = det.detect_file_streaming(p).avg_values
+    b = a.copy()
+    b[7] = np.nextafter(b[7], np.float32(1))
+    report = _wire_mismatch_report(det, (p, wp), (a, b))
+    assert report.startswith("1 of ")
+    assert "float32 wire grid vs first run equal" in report
+    assert "int16 wire grid vs first run 1 of" in report
+    for k in ("decoded", "resampled", "logits"):
+        assert f"second run, {k} (float32 wire vs int16 wire): equal" in report
+    assert "ATen parallel backend" in report
+    probe = _intra_op_fp_probe()
+    assert probe["1+0.75ulp"] == [1.0] and probe["1+0.25ulp"] == [0.0]
+    assert probe["-1-0.75ulp"] == [-1.0] and probe["denormal results flushed"] == 0
+    mx = _mxcsr()
+    assert mx is None or (mx >> 13) & 3 == 0
+
+
+@pytest.mark.parametrize("offset", [4, 20, 36])
+def test_the_wires_stay_bit_equal_with_a_misaligned_resampler(tmp_path, offset):
+    """One suspect of the AIFF/WAV mismatch above, ruled out: each wire's
+    engine holds its own resampling matrix, made by numpy, whose address
+    modulo 64 bytes varies from process to process.  The float32 wire's
+    matrix is moved to ``offset`` bytes past a 64-byte boundary; its grid
+    stays bit-equal to the int16 wire's."""
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+
+    x = _sig(6 * 16000, 1, seed=4)
+    p, wp = str(tmp_path / "x.aiff"), str(tmp_path / "x.wav")
+    write_aiff(p, _i16(x), 16000)
+    jwavio.write(wp, x, 16000, subtype="PCM_16")
+    eng = dict(precision="parity", device_batch=4, chunk_seconds=6.0, pipeline="fused")
+    det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
+                   device="cpu")
+    want = det.detect_file_streaming(wp).avg_values
+    engine = get_fused_engine(det, 16000, "f32")
+    w = engine.W
+    base = torch.empty(w.numel() + 32, dtype=torch.float32)
+    shift = (offset - base.data_ptr() % 64) % 64 // 4
+    moved = base[shift: shift + w.numel()].view_as(w)
+    moved.copy_(w)
+    assert moved.data_ptr() % 64 == offset
+    engine.W = moved
+    try:
+        got = det.detect_file_streaming(p).avg_values
+    finally:
+        engine.W = w
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("pipeline", ["fused", "host"])

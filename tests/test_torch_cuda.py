@@ -449,3 +449,52 @@ def test_gui_detect_on_the_card_equals_detect_csv(tmp_path):
     with open(win.pm.current_project["detections_file"], "rb") as a, open(out, "rb") as b:
         assert a.read() == b.read()
     assert os.path.getsize(out) > 0
+
+
+def test_host_augmentations_on_the_card_match_the_cpu():
+    """Every augmentation of train/augment.py on the card against the CPU
+    on the same clips and parameters: change_pitch bit-equal (its source
+    index divides by a tensor, as on the CPU), the others within float32
+    rounding of the peak (cuFFT against pocketfft for the filters; the
+    running phase sum for change_speed, on noise and a tone)."""
+    _need_card()
+    from softspoken_tpu_torch.train import augment as aug
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 0.2, (2, 66150)).astype(np.float32)
+    x[1] = 0.4 * np.sin(2 * np.pi * 500 * np.arange(66150) / 22050)
+    g = torch.Generator()
+    g.manual_seed(1)
+    names = list(aug.PARAM_RANGES)
+    for name, params in zip(names, aug.get_parameters(g, names)):
+        cpu = aug.FUNC_MAP[name](torch.from_numpy(x), **params)
+        card = aug.FUNC_MAP[name](torch.from_numpy(x).cuda(), **params).cpu()
+        tol = {"change_pitch": 0.0, "change_speed": 2e-3, "bandpass_filter": 1e-4}.get(name, 1e-5)
+        assert float((card - cpu).abs().max()) <= tol * float(cpu.abs().max()), name
+
+
+def test_fit_from_recordings_on_the_card(tmp_path):
+    """`train --speech-dir/--noise-dir` on the card: finite losses, and the
+    .pth drives the port's Detector there."""
+    _need_card()
+    from softspoken_tpu_torch import cli
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.train import synth
+
+    rng = np.random.default_rng(0)
+    for d in ("s", "n"):
+        (tmp_path / d).mkdir()
+        for i in range(2):
+            x = (synth.synth_speech(rng, 4 * 22050)[0] if d == "s"
+                 else synth.synth_environment(rng, 4 * 22050))
+            wavio.write(str(tmp_path / d / f"{i}.wav"), x, 22050)
+    out = str(tmp_path / "w.pth")
+    rc = cli.main(["train", "--speech-dir", str(tmp_path / "s"), "--noise-dir",
+                   str(tmp_path / "n"), "--steps", "3", "--batch-size", "4", "--out", out,
+                   "--augment", "add_reverb", "change_speed", "change_pitch"])
+    assert rc == 0
+    det = Detector(checkpoint_path=out)
+    assert det.epoch == 3
+    res = det.detect_waveform(np.zeros(22050 * 4, np.float32))
+    assert res.num_windows > 0 and np.isfinite(res.avg_values).all()

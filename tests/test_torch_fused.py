@@ -140,3 +140,60 @@ def test_cli_fails_on_an_unreadable_file(tmp_path):
                    "--random-init", "--device", "cpu", "--device-batch", "4"])
     assert rc == 1
 
+
+
+# Chunks of fewer windows than the grid's tile period p = 5 (step 0.6 s):
+# 3 s gives 4 windows at device_batch 2 and 4, 1.2 s gives 2 at device_batch
+# 2.  A group g >= chunk_w has no windows and places nothing.
+SHORT_CHUNKS = [
+    pytest.param(2, 3.0, 4, id="b2-4-windows"),
+    pytest.param(4, 3.0, 4, id="b4-4-windows"),
+    pytest.param(2, 1.2, 2, id="b2-2-windows"),
+]
+
+
+@pytest.mark.parametrize("batch,chunk,windows", SHORT_CHUNKS)
+def test_a_chunk_of_fewer_windows_than_the_tile_period(tmp_path, batch, chunk, windows):
+    """`run` over a 20 s 16 kHz file in chunks of 2-4 windows: the grid
+    within 1e-5 of the JAX fused engine's (measured ~6e-8), the intervals
+    equal."""
+    p = _wav(tmp_path, 16000, 20.0, seed=11)
+    eng = dict(PARITY, device_batch=batch, chunk_seconds=chunk)
+    det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
+                   device="cpu")
+    assert det.chunk_windows() == windows
+    ref = _jax(p, **eng)
+    got = detect_file_fused(det, p)
+    assert got.num_windows == ref.num_windows > 5 * windows
+    np.testing.assert_allclose(got.avg_values, ref.avg_values, atol=1e-5)
+    assert got.intervals == ref.intervals
+
+
+@pytest.mark.parametrize("batch,chunk,windows", SHORT_CHUNKS)
+def test_device_only_rate_on_a_chunk_of_fewer_windows(batch, chunk, windows):
+    """`device_only_rate`'s synthetic chunk (zero audio, every window valid)
+    gives the JAX engine's grid within 1e-5, and the rate runs."""
+    from softspoken_tpu.engine.fused import get_fused_engine as jax_engine
+    from softspoken_tpu_torch.engine import regions as R
+    from softspoken_tpu_torch.engine.fused import CARRY, get_fused_engine
+
+    eng = dict(PARITY, device_batch=batch, chunk_seconds=chunk)
+    jdet = JDetector(JConfig().with_engine(**eng), variables=jckpt.fixture_variables(seed=0))
+    je = jax_engine(jdet, 16000, "i16")
+    zeros = np.zeros(CARRY, np.float32)
+    ref = np.asarray(je._fn(jdet.variables, *je.synthetic_chunk_args(), zeros, zeros)[0])
+
+    det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
+                   device="cpu")
+    e = get_fused_engine(det, 16000, "i16")
+    assert e.chunk_w == windows
+    starts = np.minimum(np.arange(windows) * det.cfg.samples_per_step,
+                        e.buf_len - det.cfg.samples_per_window).astype(np.int32)
+    place = e._placement(R.window_bin_offset(np.arange(windows),
+                                             det.cfg.engine.step_seconds), windows)
+    got = e._program(torch.zeros(e._wire_len, dtype=e._wire_dtype), 0, 0,
+                     torch.from_numpy(starts.reshape(e.nb, e.B)), place,
+                     torch.ones(windows), torch.zeros(CARRY), torch.zeros(CARRY))[0]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    assert e.device_only_rate(repeats=1) > 0

@@ -250,16 +250,30 @@ def test_corrupt_and_unported_files(tmp_path):
     assert jload_audio(str(bad)) == (None, None)
     with pytest.raises(IOError):
         _pdet(**HOST).detect_file(str(bad))
+    # a junk MP3 and a junk Ogg with an OpusHead: the JAX package's
+    # behaviour, the codec readers' own errors (a bare OpusHead is no valid
+    # Opus BOS page, so the Ogg falls to the Vorbis reader in both)
+    from softspoken_tpu.io import audio as jaudio
+    from softspoken_tpu.io.mp3 import Mp3FormatError as JMp3Error
+    from softspoken_tpu.io.oggvorbis import OggFormatError as JOggError
+    from softspoken_tpu_torch.io.mp3 import Mp3FormatError
+    from softspoken_tpu_torch.io.oggvorbis import OggFormatError
+
     mp3 = tmp_path / "x.mp3"
     mp3.write_bytes(b"ID3" + bytes(60))
-    with pytest.raises(NotImplementedError, match="MP3"):
-        load_audio(str(mp3))
-    with pytest.raises(NotImplementedError, match="MP3"):
+    assert load_audio(str(mp3)) == (None, None) == jload_audio(str(mp3))
+    with pytest.raises(JMp3Error) as want:
+        _jdet(**HOST).detect_file_streaming(str(mp3))
+    with pytest.raises(Mp3FormatError) as got:
         _pdet(**HOST).detect_file_streaming(str(mp3))
+    assert str(got.value) == str(want.value)
     ogg = tmp_path / "x.opus"
     ogg.write_bytes(b"OggS" + bytes(24) + b"OpusHead" + bytes(30))
-    with pytest.raises(NotImplementedError, match="Opus"):
+    with pytest.raises(JOggError) as want:
+        jaudio.get_audio_data(str(ogg))
+    with pytest.raises(OggFormatError) as got:
         audio.get_audio_data(str(ogg))
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
@@ -327,4 +341,11 @@ def test_runner_records_unreadable_files_and_goes_on(tmp_path):
     assert report.files_done == 1
     assert set(report.errors) == {str(bad), str(ogg)}
     assert report.errors[str(bad)].startswith("OSError")
-    assert report.errors[str(ogg)].startswith("NotImplementedError: Ogg Vorbis")
+    # the junk Ogg is a decode failure, as the JAX runner records it
+    from softspoken_tpu.runtime.workers import DetectRunner as JRunner
+
+    jreport = JRunner(_jdet(**HOST), JStore(str(tmp_path / "j.csv"))).run(
+        [str(bad), str(ogg), good])
+    assert jreport.files_done == 1 and set(jreport.errors) == set(report.errors)
+    assert jreport.errors[str(ogg)] == "decode failed"
+    assert report.errors[str(ogg)] == f"OSError: failed to decode {ogg}"

@@ -29,13 +29,17 @@ FORBIDDEN = ("jax", "softspoken_tpu", "pandas", "matplotlib")
 
 
 def test_the_walk_takes_in_every_package_of_the_port():
-    """The Qt shim's ``PySide6`` stand-in and the bench are walked (and so
-    imported and parsed below) like every other module."""
+    """The Qt shim's ``PySide6`` stand-in, the bench, the host trainer's
+    modules and the codec readers are walked (and so imported and parsed
+    below) like every other module."""
     mods = _modules()
     shim = "softspoken_tpu_torch.ui.qt_shim"
     assert {shim, f"{shim}.PySide6", f"{shim}.PySide6.QtCore", f"{shim}.PySide6.QtGui",
             f"{shim}.PySide6.QtWidgets", "softspoken_tpu_torch.ui.qt_app",
             "softspoken_tpu_torch.bench", "softspoken_tpu_torch.runtime.profiling"} <= set(mods)
+    assert {f"softspoken_tpu_torch.{m}" for m in (
+        "train.augment", "train.data", "train.fit", "io.mp3", "io.oggvorbis",
+        "io.opus")} <= set(mods)
 
 
 def test_importing_every_module_loads_no_jax():
