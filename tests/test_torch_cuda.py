@@ -264,21 +264,40 @@ def test_eval_on_the_card_matches_the_cpu(tmp_path):
     assert card["frame"]["f1"] > 0.8
 
 
-@pytest.mark.parametrize("n_samples", [2_498_976, 2_498_976 - 160, 256 * 37 + 5],
-                         ids=["chunk", "whole-blocks", "short-tail"])
-def test_adpcm_kernel_is_bit_equal_to_plain_version(n_samples):
+@pytest.mark.parametrize(
+    "n_samples,nb,saturate",
+    [(2_498_976, None, False), (2_498_976 - 160, None, False), (256 * 37 + 5, None, False),
+     (256, 1, False), (100, 1, False), (13 * 256, 13, False), (13 * 256 - 7, 14, False),
+     (256 * 40 + 1, None, False), (256 * 40 + 8, None, False), (256 * 40 + 9, None, False),
+     (256 * 40 + 255, None, False), (256 * 45, None, True)],
+    ids=["chunk", "whole-blocks", "short-tail", "nb1", "nb1-tail", "nb13",
+         "nb14-block-past-n", "tail-lane+1", "tail-lane+8", "tail-lane+9", "tail-lane+255",
+         "saturate-every-step"])
+def test_adpcm_kernel_is_bit_equal_to_plain_version(n_samples, nb, saturate):
     """K3 on the wire of a default chunk at the 16 kHz decimated rate
     (2,498,976 samples, 160 past a whole block) of random bytes with header
-    indices 0..255, on whole blocks, and on a short tail: the same integers
-    and one exact scale, so equal bits."""
+    indices 0..255, on whole blocks, and on a short tail; on one block; on
+    13 and 14 blocks (not a multiple of the kernel's 4 warps a CUDA block,
+    the 14th wholly past n); with n ending one sample into a lane's 8, on
+    its end, one past it and one short of the block; and on a wire whose
+    every step saturates a clip (seeds at -32768 and 32767, nibble runs 0xF
+    and 0x7 at step index 88).  The same integers and one exact scale, so
+    equal bits, in one launch."""
     _need_card()
     from softspoken_tpu_torch.ops import adpcm
 
-    nb = adpcm.n_blocks(n_samples)
+    nb = nb or adpcm.n_blocks(n_samples)
     rng = np.random.default_rng(n_samples)
     w = rng.integers(0, 256, nb * adpcm.BLOCK_BYTES).astype(np.uint8).reshape(nb, -1)
-    w[:2, 0:2] = [[0x00, 0x80], [0xFF, 0x7F]]        # seeds -32768 and 32767
-    w[0, adpcm.HDR_BYTES:], w[1, adpcm.HDR_BYTES:] = 0xFF, 0x77
+    if saturate:
+        w[:, 2] = 88
+        w[0::2, 0:2], w[0::2, adpcm.HDR_BYTES:] = [0x00, 0x80], 0xFF  # -32768, falling
+        w[1::2, 0:2], w[1::2, adpcm.HDR_BYTES:] = [0xFF, 0x7F], 0x77  # 32767, rising
+    else:
+        w[:2, 0:2] = [[0x00, 0x80], [0xFF, 0x7F]][:nb]   # seeds -32768 and 32767
+        w[0, adpcm.HDR_BYTES:] = 0xFF
+        if nb > 1:
+            w[1, adpcm.HDR_BYTES:] = 0x77
     wire = torch.from_numpy(w.reshape(-1)).cuda()
     before = KERNEL_LAUNCHES[adpcm.NAME]
     got = adpcm.decode_device(wire, n_samples)
@@ -287,9 +306,14 @@ def test_adpcm_kernel_is_bit_equal_to_plain_version(n_samples):
     assert got.shape == (n_samples,) and got.dtype == torch.float32
     ref = adpcm.decode_device_ref(wire, n_samples)
     assert torch.equal(got, ref)
-    np.testing.assert_array_equal(got[: 37 * 256].cpu().numpy(),
-                                  adpcm.decode_device_ref(wire[: 37 * adpcm.BLOCK_BYTES].cpu(),
-                                                          37 * 256).numpy())
+    k = min(nb, 37)
+    m = min(n_samples, k * 256)
+    np.testing.assert_array_equal(got[:m].cpu().numpy(),
+                                  adpcm.decode_device_ref(wire[: k * adpcm.BLOCK_BYTES].cpu(),
+                                                          m).numpy())
+    if saturate:
+        pcm = (got.reshape(-1, 256).cpu().numpy() * 32768).astype(np.int64)
+        assert (pcm[0::2] == -32768).all() and (pcm[1::2] == 32767).all()
 
 
 def test_adpcm_wrapper_rejects_a_misaligned_wire():
