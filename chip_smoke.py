@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels    # build + check the kernels only
+    python3 chip_smoke.py --mesh-only  # what needs several cards, over all of them
 
 Phases:
   1. device and toolchain: the card's name and power limit, nvcc/triton,
@@ -137,6 +138,35 @@ Phases:
      one, probe/detect raising the reader's error, load_audio (None, None)
      and ``DetectRunner`` recording the file and finishing the next, as
      the JAX package does on such a host.
+ 13. slice 14 (several cards), after the host path's parity checks: mesh —
+     a ``MeshDetector`` over [cuda:0, cuda:0] on the 30-minute WAV in parity
+     precision, fused with K1 ("highest"), host with K2, and fused on the
+     adpcm4 wire: grids within 1e-5 of one card's, intervals equal, K1 and
+     K2 launched once per batch per data entry, K3 once per chunk on the
+     detector's card (``launches_mesh``); ``detect --distributed
+     --num-processes 1`` on a project and ``project merge-detections``;
+     ``train --synthetic --mesh`` as a 1 x 1 NCCL group for two float32
+     steps against ``train``, TF32 off in both (loss within 1e-3, the
+     parameters' movement within 0.2 relative L2: Adam's first update is
+     ±lr wherever a gradient is within rounding of 0), and two float64
+     sharded steps in a 1 x 1
+     NCCL group against two unsharded ones (every state tensor within 1e-6
+     of its max).
+     ``--mesh-only`` runs instead, over every visible card: phases 1-2 on
+     cuda:0, then K1 (every mode), K2 and K3 on each card from a thread
+     whose current device is cuda:0, against their plain versions; the mesh
+     parity above over every card; ``detect`` and ``detect --mesh`` (fast,
+     fixture weights): warm audio-s/wall-s and ``device_only_rate`` each,
+     intervals equal; a journal kill after 5 of 12 chunks and resume under
+     the mesh, bit-equal; two ``detect --distributed`` processes (cards 0
+     and 1) and ``project merge-detections`` against one process, CSV
+     byte-identical; (n/2, 2) training in n processes (``spawn``): two
+     float64 sharded steps within 1e-6 of the unsharded ones, two float32
+     ``fit_synthetic`` steps at B = 32 with TF32 off (the parameters'
+     movement within 0.2 relative L2 of one card's), then ``fit_synthetic``
+     at phase 5's point (B = 32, pools 128 + 128, n_inner = 10, 40 steps)
+     beside one card's: steps/s, losses per outer call within 2%, the
+     parameters' movement within 1.0 relative L2.
 Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
 over phase 8; ``launches_journal``: in phase 10's journaled run;
 ``launches_bench_repeat``, ``launches_bench_device_only`` and
@@ -2893,9 +2923,601 @@ def phase_codecs(work: str, smi: str, seconds: float = 120.0, device: str = "cud
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 14: several cards
+
+MESH_GRID_TOL = 1e-5  # float32, TF32 off: convolutions at another batch size round apart
+
+
+def _last_json(out: str) -> dict:
+    """The last indented JSON object a command printed (a detect report)."""
+    start = out.rindex("\n{") + 1
+    return json.loads(out[start: out.index("\n}", start) + 2])
+
+
+def mesh_detect_parity(wav: str, devices, smi: str) -> dict:
+    """``MeshDetector`` over ``devices`` against one card on ``wav``, in parity
+    precision (float32, TF32 off) so that the grid speaks for the sharding:
+    the fused path with K1 ("highest"), the host path with K2, and the fused
+    path on the adpcm4 wire (K3).  The grids within MESH_GRID_TOL, the
+    intervals equal, K1 and K2 launched once per batch per data entry, K3
+    once per chunk on the detector's card (the mesh copies the decoded,
+    resampled chunk to the other cards), each count set to 0 just before
+    its run.  Returns each kernel's launches in its mesh run."""
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.ckpt import fixture_state_dict
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.parallel import MeshDetector, make_mesh
+
+    sd = fixture_state_dict(0)
+    n = len(devices)
+    out = {}
+    # (case, engine options, the kernel it reports, {kernel: mesh launches
+    # per one-card launch})
+    for name, eng, kernel, per in (
+            ("fused", dict(pipeline="fused", mel_kernel="fused"), "frame_mel",
+             {"frame_mel": n}),
+            ("host", dict(pipeline="host", mel_kernel="pallas"), "dft_mel", {"dft_mel": n}),
+            ("adpcm4 wire", dict(pipeline="fused", mel_kernel="fused", upload_codec="adpcm4"),
+             "adpcm_decode", {"adpcm_decode": 1, "frame_mel": n})):
+        cfg = Config().with_engine(precision="parity", **eng)
+        runs = {}
+        for label in ("one card", f"mesh x{n}"):
+            det = Detector(cfg, state_dict=sd, device="cuda:0")
+            if label != "one card":
+                MeshDetector(det, make_mesh(("data",), devices=devices))
+            res, wall, _st, launches, _c = _timed_detect(det, wav)
+            runs[label] = (res, {k: launches.get(k, 0) for k in per}, wall)
+        (one, l1, w1), (mesh, ln, wn) = runs.values()
+        err = float(np.abs(mesh.avg_values - one.avg_values).max())
+        same = mesh.intervals == one.intervals and mesh.num_windows == one.num_windows
+        counted = all(l1[k] > 0 and ln[k] == m * l1[k] for k, m in per.items())
+        log(f"mesh {name} parity over {[str(d) for d in devices]}: grid max_abs_diff="
+            f"{err:.3e} tol={MESH_GRID_TOL:.0e}, intervals equal={same} "
+            f"({len(one.intervals)}), launches one card {json.dumps(l1)}, mesh "
+            f"{json.dumps(ln)} (expected x{json.dumps(per)}: {counted}); wall one card "
+            f"{w1:.3f} s, mesh {wn:.3f} s | {smi}")
+        if err > MESH_GRID_TOL or not same or not counted:
+            raise AssertionError(f"mesh {name}: the sharded run disagrees with one card")
+        out[kernel] = ln[kernel]
+    return out
+
+
+def sharded_step_f64(mesh, rank: int, steps: int = 2, seed: int = 0) -> dict:
+    """``steps`` sharded steps of ``make_sharded_train_step`` over ``mesh`` on
+    this rank's card in float64, from seeded weights on a seeded global
+    batch (B = 2 x data, T = 256, boundary weight 2, dropout 0.1); returns
+    the state dict and the metrics."""
+    from softspoken_tpu_torch.train import loop
+
+    state = _f64_state(mesh, rank, seed)
+    step, shard = loop.make_sharded_train_step(state, mesh, boundary_weight=2.0)
+    batch = _f64_batch(2 * mesh.shape["data"], state.device, seed)
+    ms = [{k: float(v) for k, v in step(state, shard(batch)).items()} for _ in range(steps)]
+    return {"sd": {k: v.cpu() for k, v in state.model.state_dict().items()}, "metrics": ms}
+
+
+def _f64_state(mesh, rank: int, seed: int):
+    from softspoken_tpu_torch.train import loop
+
+    dev = list(mesh.devices.flat)[rank] if mesh is not None else torch.device("cuda", 0)
+    model = loop.create_train_state(seed, dropout_p=0.1).model.double().to(dev)
+    return loop.TrainState(model, loop.make_optimizer(model), seed=seed)
+
+
+def _f64_batch(B: int, dev, seed: int) -> dict:
+    rng = np.random.default_rng(seed + 100)
+    toggles = rng.uniform(size=(B, 256)) > 0.95
+    b = {"mel": rng.uniform(0.0, 1.5, (B, 128, 256)),
+         "mask": (np.cumsum(toggles, axis=1) % 2).astype(np.float64),
+         "spec": rng.uniform(0.0, 1.0, (B, 2, 128, 256))}
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def unsharded_step_f64(B: int, steps: int = 2, seed: int = 0) -> dict:
+    """The unsharded counterpart of ``sharded_step_f64`` on cuda:0."""
+    from softspoken_tpu_torch.train import loop
+
+    state = _f64_state(None, 0, seed)
+    batch = _f64_batch(B, state.device, seed)
+    ms = [{k: float(v) for k, v in loop.train_step(state, batch, 2.0).items()}
+          for _ in range(steps)]
+    return {"sd": {k: v.cpu() for k, v in state.model.state_dict().items()}, "metrics": ms}
+
+
+F64_TOL = 1e-6  # float64: reduction orders only (measured ~1e-11 on the CPU)
+
+
+def check_f64_steps(label: str, got: dict, want: dict, smi: str) -> float:
+    """The sharded float64 steps against the unsharded: every state tensor
+    within F64_TOL of its max (relative), the metrics too."""
+    worst = max(float((got["sd"][k].double() - v.double()).abs().max()
+                      / max(float(v.double().abs().max()), 1e-30))
+                for k, v in want["sd"].items() if v.is_floating_point())
+    m_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["metrics"], want["metrics"])
+                for k in b)
+    log(f"{label}: {len(want['metrics'])} float64 steps, sharded vs unsharded: worst state "
+        f"tensor rel_diff={worst:.3e}, metrics rel_diff={m_err:.3e}, tol={F64_TOL:.0e}; "
+        f"losses {[round(m['loss'], 9) for m in got['metrics']]} | {smi}")
+    if worst > F64_TOL or m_err > F64_TOL:
+        raise AssertionError(f"{label}: the sharded float64 steps disagree with the unsharded")
+    return worst
+
+
+def adam_rule(before: dict, got: dict, want: dict, lr: float = 1e-3) -> dict:
+    """tests/test_torch_parallel_train.py's comparison of two float32 runs:
+    each element's movement against the reference's (Adam's first update
+    is ±lr for every element whose gradient is not within rounding of 0)."""
+    n = half = tenth = 0
+    worst = 0.0
+    num = den = 0.0
+    for k, w in want.items():
+        if "running" in k or "num_batches" in k:
+            continue
+        b = torch.as_tensor(before[k]).double()
+        dw = torch.as_tensor(w).double() - b
+        d = (torch.as_tensor(got[k]).double() - b - dw).abs()
+        worst = max(worst, float(d.max()))
+        n += d.numel()
+        half += int((d > 0.5 * lr).sum())
+        tenth += int((d > 0.1 * lr).sum())
+        num += float((d ** 2).sum())
+        den += float((dw ** 2).sum())
+    return {"max_abs": worst, "frac_half_lr": half / n, "frac_tenth_lr": tenth / n,
+            "rel_l2_of_movement": (num / max(den, 1e-30)) ** 0.5}
+
+
+def phase_mesh(work: str, wav: str, wav60: str, smi: str) -> dict:
+    """Slice 14 on one card: (1) a MeshDetector over [cuda:0, cuda:0] on the
+    30-minute WAV, fused, host with K2 and the adpcm4 wire
+    (``mesh_detect_parity``); (2)
+    ``detect --distributed --num-processes 1`` on a project, then ``project
+    merge-detections``; (3) ``train --synthetic --mesh`` as a 1 x 1 NCCL
+    group for two steps against two unsharded steps (float32: Adam's rule),
+    and two float64 sharded steps in a 1 x 1 NCCL group against two
+    unsharded ones within F64_TOL."""
+    import torch.distributed as dist
+
+    from softspoken_tpu_torch.ckpt import load_pth
+    from softspoken_tpu_torch.ops.mel import fp32_matmul
+    from softspoken_tpu_torch.parallel import make_mesh
+    from softspoken_tpu_torch.parallel.distributed import free_port, init_process_group
+    from softspoken_tpu_torch.train.loop import create_train_state
+
+    t0 = time.perf_counter()
+    dev0 = torch.device("cuda", 0)
+    launches = mesh_detect_parity(wav, [dev0, dev0], smi)
+
+    pdir = os.path.join(work, "mesh_project")
+    shutil.rmtree(pdir, ignore_errors=True)
+    times: dict = {}
+    _cli(["--project-dir", pdir, "project", "new", "M", wav60], "new", times)
+    _, out = _cli(["--project-dir", pdir, "detect", "--project", "M", "--random-init",
+                   "--distributed", "--num-processes", "1"], "detect --distributed", times)
+    report = _last_json(out)
+    _, merged = _cli(["--project-dir", pdir, "project", "merge-detections", "M"], "merge", times)
+    merged = json.loads(merged.strip().splitlines()[-1])
+    log(f"mesh detect --distributed --num-processes 1: files_done={report['files_done']} "
+        f"rows_added={report['rows_added']} csv={os.path.basename(report['detections_csv'])}; "
+        f"merge-detections {json.dumps({k: merged[k] for k in ('partitions', 'files', 'rows')})}"
+        f"; wall s {json.dumps({k: round(v, 3) for k, v in times.items()})}")
+    if report["files_done"] != 1 or merged["partitions"] != 0 or dist.is_initialized():
+        raise AssertionError("detect --distributed with one process did not run as one process")
+
+    common = ["train", "--synthetic", "--steps", "2", "--batch-size", "8", "--pool-size", "8",
+              "--n-inner", "1", "--augment", *TRAIN_AUGS, "--seed", "3"]
+    with fp32_matmul():  # TF32 convolutions would round the two runs apart at 1e-3
+        _, plain = _cli([*common, "--out", os.path.join(work, "mesh_plain.pth")], "train", times)
+        _, meshed = _cli([*common, "--mesh", "--out", os.path.join(work, "mesh_1x1.pth")],
+                         "train --mesh", times)
+    plain, meshed = (json.loads(o.strip().splitlines()[-1]) for o in (plain, meshed))
+    sd, epoch = load_pth(os.path.join(work, "mesh_1x1.pth"))
+    rule = adam_rule(create_train_state(3).model.state_dict(), sd,
+                     load_pth(os.path.join(work, "mesh_plain.pth"))[0])
+    loss_rel = abs(meshed["loss"] - plain["loss"]) / plain["loss"]
+    log(f"mesh train --mesh (1 x 1 NCCL group, B=8, two steps, float32, TF32 off) vs train: loss "
+        f"{meshed['loss']:.7f} / {plain['loss']:.7f} rel_diff={loss_rel:.2e} (tol 1e-3); "
+        f"parameters: relative L2 of the movement {rule['rel_l2_of_movement']:.3e} (tol 0.2), "
+        f"max_abs_diff={rule['max_abs']:.3e}, elements off by > 0.5 lr {rule['frac_half_lr']:.2e},"
+        f" > 0.1 lr {rule['frac_tenth_lr']:.2e} (Adam's ±lr first update; the float64 check "
+        f"below holds the steps exactly); wall s {times['train']:.2f} / "
+        f"{times['train --mesh']:.2f} | {smi}")
+    if (loss_rel > 1e-3 or rule["rel_l2_of_movement"] > 0.2 or epoch != 2
+            or dist.is_initialized()):
+        raise AssertionError("train --mesh on one card disagrees with train")
+
+    mesh = make_mesh(("data", "seq"), shape=(1, 1), devices=[dev0])
+    init_process_group(f"tcp://localhost:{free_port()}", 1, 0, dev0, timeout_s=300)
+    try:
+        got = sharded_step_f64(mesh, 0)
+    finally:
+        dist.destroy_process_group()
+    check_f64_steps("mesh 1 x 1 NCCL group", got, unsharded_step_f64(2), smi)
+    log(f"mesh phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# two float32 steps of fit_synthetic at B = 32, compared with TF32 off
+SHORT_FIT = dict(steps=2, batch_size=32, n_inner=1, pool_speech=16, pool_noise=16,
+                 augmentations=TRAIN_AUGS, seed=0)
+
+
+def _kernel_ms_by_card(prof) -> dict:
+    """Each card's device time (kernels and copies) in a profile, and its
+    NCCL kernels' share: {card: {"busy_ms", "nccl_ms", "nccl_kernels"}}."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        d = out.setdefault(int(e.device_index), {"busy_ms": 0.0, "nccl_ms": 0.0,
+                                                 "nccl_kernels": 0})
+        ms = e.time_range.elapsed_us() / 1e3
+        d["busy_ms"] += ms
+        if "nccl" in e.name.lower():
+            d["nccl_ms"] += ms
+            d["nccl_kernels"] += 1
+    return out
+
+
+def profile_mesh_chunk(engine, label: str, smi: str, repeats: int = 4) -> dict:
+    """Where a chunk program's time goes, on one card or over a mesh: the
+    chunk's wall time (``device_only_rate``, no profiler), the host
+    thread's time inside the chunk forward (the sharded forward enqueues
+    every card's forwards, the shard and wave copies and the gather to the
+    detector's card; it does not wait on a card), and each card's device
+    time per chunk under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd = engine._forward_chunk
+    spent = []
+
+    def timed(wave, starts):
+        t = time.perf_counter()
+        out = fwd(wave, starts)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    engine._forward_chunk = timed
+    try:
+        engine.device_only_rate(repeats=1)  # warm
+        spent.clear()
+        rate = engine.device_only_rate(repeats=repeats)
+        enqueue_ms = 1e3 * float(np.median(spent))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            engine.device_only_rate(repeats=repeats)
+    finally:
+        engine._forward_chunk = fwd
+    chunks = repeats + 1  # device_only_rate runs one program before its clock
+    wall_ms = 1e3 * engine.chunk_w * engine.cfg.engine.step_seconds / rate
+    cards = {c: round(v["busy_ms"] / chunks, 3) for c, v in
+             sorted(_kernel_ms_by_card(prof).items())}
+    log(f"mesh-only profile {label}: chunk wall_ms={wall_ms:.3f} (device_only_rate {rate:.2f}), "
+        f"host time in the chunk forward {enqueue_ms:.3f} ms "
+        f"({100 * enqueue_ms / wall_ms:.1f}% of the wall), device ms per chunk by card "
+        f"{json.dumps(cards)} | {smi}")
+    return {"wall_ms": wall_ms, "forward_host_ms": enqueue_ms, "device_ms_by_card": cards}
+
+
+def profile_step(step_fn, dev, reps: int = 5) -> dict:
+    """One train step's wall time (the median of ``reps`` synchronized
+    steps, no profiler) and, under ``torch.profiler`` over ``reps`` more,
+    this card's device time per step and its NCCL kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step_fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step_fn()
+        torch.cuda.synchronize(dev)
+    mine = _kernel_ms_by_card(prof).get(dev.index, {"busy_ms": 0.0, "nccl_ms": 0.0,
+                                                    "nccl_kernels": 0})
+    return {"wall_ms": 1e3 * float(np.median(walls)), "device_ms": mine["busy_ms"] / reps,
+            "nccl_ms": mine["nccl_ms"] / reps, "nccl_kernels": mine["nccl_kernels"] / reps}
+
+
+def _f32_step(mesh, rank: int, B: int):
+    """A float32 train step at phase 5's batch (B rows, T = 256, boundary
+    weight 2, dropout 0.1) on this rank's card: sharded over ``mesh``, or
+    the unsharded step on cuda:0 when ``mesh`` is None."""
+    from softspoken_tpu_torch.train import loop
+
+    dev = list(mesh.devices.flat)[rank] if mesh is not None else torch.device("cuda", 0)
+    model = loop.create_train_state(0, dropout_p=0.1).model.to(dev)
+    state = loop.TrainState(model, loop.make_optimizer(model), seed=0)
+    batch = {k: v.float() for k, v in _f64_batch(B, dev, 0).items()}
+    if mesh is None:
+        return lambda: loop.train_step(state, batch, 2.0), dev
+    step, shard = loop.make_sharded_train_step(state, mesh, boundary_weight=2.0)
+    block = shard(batch)
+    return lambda: step(state, block), dev
+
+
+def _mesh_train_worker(rank: int, world: int, init: str, work: str, timed_outer: int) -> None:
+    """One rank of the (2, 2) mesh training (``--mesh-only``): two float64
+    sharded steps (rank 0 saves them); two ``fit_synthetic`` steps with TF32
+    off (``short_fit``); then ``fit_synthetic`` under the mesh at phase 5's
+    point (rank 0 saves the metrics per outer call)."""
+    import torch.distributed as dist
+
+    from softspoken_tpu_torch.ops.mel import fp32_matmul
+    from softspoken_tpu_torch.parallel import make_mesh
+    from softspoken_tpu_torch.parallel.distributed import init_process_group
+    from softspoken_tpu_torch.train import fit_synthetic
+
+    mesh = make_mesh(("data", "seq"), shape=(world // 2, 2))
+    init_process_group(init, world, rank, list(mesh.devices.flat)[rank], timeout_s=300)
+    try:
+        f64 = sharded_step_f64(mesh, rank)
+        if rank == 0:
+            torch.save(f64, os.path.join(work, "mesh_f64.pt"))
+        prof = profile_step(*_f32_step(mesh, rank, 32))
+        with open(os.path.join(work, f"mesh_step_rank{rank}.json"), "w") as f:
+            json.dump(prof, f)
+        with fp32_matmul():
+            fit_synthetic(mesh=mesh, ckpt_out=os.path.join(work, "mesh_short.pth"), **SHORT_FIT)
+        seen = []
+        fit_synthetic(steps=10 * (1 + timed_outer), batch_size=32, n_inner=10, pool_speech=128,
+                      pool_noise=128, augmentations=TRAIN_AUGS, seed=0, mesh=mesh,
+                      ckpt_out=os.path.join(work, "mesh_train.pth"), log_every_outer=1,
+                      save_every_outer=10 ** 6, on_metrics=lambda step, m: seen.append(m))
+        if rank == 0:
+            with open(os.path.join(work, "mesh_train.json"), "w") as f:
+                json.dump(seen, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_only(smi: str, peaks) -> list:
+    """The ``--mesh-only`` run over every visible card (four, as it is run
+    on a four-card host), mirroring the JAX package's ``dryrun_multichip``:
+    kernels on every card, ``detect --mesh`` against one card with both
+    rates, a journal kill/resume under the mesh, a 2-process ``detect
+    --distributed`` + merge against one process, and (2, 2) training.
+    Returns the kernel records."""
+    from softspoken_tpu_torch import Config, cli
+    from softspoken_tpu_torch.ckpt import fixture_state_dict, load_pth
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.engine.fused import get_fused_engine
+    from softspoken_tpu_torch.ops.mel import fp32_matmul
+    from softspoken_tpu_torch.parallel import MeshDetector, make_mesh
+    from softspoken_tpu_torch.parallel import distributed as pdist
+    from softspoken_tpu_torch.train import fit_synthetic
+    from softspoken_tpu_torch.train.loop import create_train_state
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f"--mesh-only needs several cards, found {n}")
+    devices = [torch.device("cuda", i) for i in range(n)]
+    work = os.path.join(HERE, "build", "softspoken_tpu_torch", "smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tc = phase_toolchain()
+    recs = [phase_frame_mel(peaks), phase_dft_mel(peaks), phase_adpcm(peaks, smi)]
+    for rec in recs:
+        rec.update(tc[rec["name"]])
+    errs = per_card_kernels(devices, smi)
+    for rec in recs:
+        rec["max_abs_err_per_card"] = errs[rec["name"]]
+
+    sr = 32000
+    wav = os.path.join(work, "field_30min_32k.wav")
+    _field_wav(wav, 1800.0, sr, seed=11)
+    launches = mesh_detect_parity(wav, devices, smi)
+    for rec in recs:
+        rec["launches"] = launches[rec["name"]]
+
+    # rates: detect (fast, fixture weights) on one card and over every card
+    rates = {}
+    for label, flags in (("one card", []), (f"mesh x{n}", ["--mesh"])):
+        args = cli.build_parser().parse_args(
+            ["detect", "--files", wav, "--out", os.path.join(work, f"rate_{len(flags)}.csv"),
+             "--random-init", "--strict-reference", *flags])
+        cli.cmd_detect(args)  # warm
+        warm = cli.cmd_detect(args)
+        det = Detector(Config(), state_dict=fixture_state_dict(0))
+        if flags:
+            MeshDetector(det, make_mesh(("data",)))
+        res = det.detect_file_streaming(wav)
+        engine = get_fused_engine(det, sr, "i16")
+        rate = engine.device_only_rate(repeats=4)
+        profile_mesh_chunk(engine, label, smi)
+        rates[label] = (warm["audio_sec_per_wall_sec"], rate, res)
+        log(f"mesh-only detect {label}: e2e warm audio_sec_per_wall_sec="
+            f"{warm['audio_sec_per_wall_sec']:.2f} (per card "
+            f"{warm['audio_sec_per_wall_sec_per_chip']:.2f}), device_only_rate={rate:.2f}, "
+            f"stage_seconds {json.dumps({k: round(v, 3) for k, v in warm['stage_seconds'].items()})}"
+            f" | {smi}")
+    (_, _, one), (_, _, mesh_res) = rates.values()
+    diff = float(np.abs(mesh_res.avg_values - one.avg_values).max())
+    log(f"mesh-only detect fast mode, mesh vs one card: intervals equal="
+        f"{mesh_res.intervals == one.intervals}, grid max_abs_diff={diff:.3e} (bf16 convolutions "
+        f"at another batch size; the parity-mode check above holds {MESH_GRID_TOL:.0e})")
+    if mesh_res.intervals != one.intervals:
+        raise AssertionError("detect --mesh changed the intervals")
+
+    # a journal kill and resume under the mesh
+    det = Detector(Config().with_engine(chunk_checkpoint_every=1), state_dict=fixture_state_dict(0))
+    MeshDetector(det, make_mesh(("data",)))
+    base = det.detect_file_streaming(wav)
+    engine = get_fused_engine(det, sr, "i16")
+    jd = os.path.join(work, "journal")
+    calls = _count_programs(engine, kill_after=5)
+    try:
+        det.detect_file_streaming(wav, journal_dir=jd)
+        raise AssertionError("the simulated preemption did not fire")
+    except RuntimeError as e:
+        if "preemption" not in str(e):
+            raise
+    del engine._program
+    calls = _count_programs(engine)
+    resumed = det.detect_file_streaming(wav, journal_dir=jd)
+    del engine._program
+    equal = (np.array_equal(resumed.avg_values, base.avg_values)
+             and resumed.intervals == base.intervals)
+    log(f"mesh-only journal: killed after 5 chunks, resumed with {len(calls)} programs, grid and "
+        f"intervals bit-equal={equal}, sidecar left={os.listdir(jd)}")
+    if not equal or os.listdir(jd) or len(calls) != 7:
+        raise AssertionError("the journal did not resume bit-equal under the mesh")
+
+    # two processes of detect --distributed + merge against one process
+    files = []
+    for i in range(2):
+        p = os.path.join(work, f"dist{i}.wav")
+        _field_wav(p, 60.0, sr, seed=20 + i)
+        files.append(p)
+    times: dict = {}
+    for d in ("one", "two"):
+        _cli(["--project-dir", os.path.join(work, d), "project", "new", "P", *files], d, times)
+    _cli(["--project-dir", os.path.join(work, "one"), "detect", "--project", "P",
+          "--random-init"], "one process", times)
+    port = pdist.free_port()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "softspoken_tpu_torch", "--project-dir",
+         os.path.join(work, "two"), "detect", "--project", "P", "--random-init",
+         "--distributed", "--coordinator", f"localhost:{port}", "--num-processes", "2",
+         "--process-id", str(r)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"detect --distributed exited {p.returncode}:\n{out[-3000:]}")
+    devs = [_last_json(o)["device"] for o in outs]
+    _cli(["--project-dir", os.path.join(work, "two"), "project", "merge-detections", "P"],
+         "merge", times)
+    csvs = [open(os.path.join(work, d, "Softspoken Outputs", "P", "P_detections.csv"),
+                 "rb").read() for d in ("one", "two")]
+    log(f"mesh-only detect --distributed: 2 processes on {devs} in "
+        f"{time.perf_counter() - t1:.2f} s, merged CSV identical to one process's="
+        f"{csvs[0] == csvs[1]} ({len(csvs[0].splitlines()) - 1} rows); one process "
+        f"{times['one process']:.2f} s")
+    if csvs[0] != csvs[1] or devs[0] == devs[1]:
+        raise AssertionError("detect --distributed + merge differs from one process")
+
+    # (2, 2) training: float64 exactness, then phase 5's point against one card
+    timed_outer = 3
+    t1 = time.perf_counter()
+    pdist.spawn(_mesh_train_worker, n, args=(n, f"tcp://localhost:{pdist.free_port()}", work,
+                                             timed_outer), timeout_s=600)
+    log(f"mesh-only training workers: {time.perf_counter() - t1:.1f} s")
+    one = profile_step(*_f32_step(None, 0, 32))
+    ranks = [json.load(open(os.path.join(work, f"mesh_step_rank{r}.json"))) for r in range(n)]
+    log(f"mesh-only profile of one float32 train step (B=32, T=256, no synthesis): one card "
+        f"wall_ms={one['wall_ms']:.3f} device_ms={one['device_ms']:.3f}; ({n // 2}, 2) per rank "
+        + "; ".join(f"rank {r} wall_ms={p['wall_ms']:.3f} device_ms={p['device_ms']:.3f} "
+                    f"nccl_ms={p['nccl_ms']:.3f} nccl_kernels={p['nccl_kernels']:.0f}"
+                    for r, p in enumerate(ranks)) + f" | {smi}")
+    check_f64_steps(f"mesh ({n // 2}, 2) NCCL group", torch.load(
+        os.path.join(work, "mesh_f64.pt")), unsharded_step_f64(2 * (n // 2)), smi)
+    init_sd = create_train_state(0).model.state_dict()
+    short = os.path.join(work, "one_short.pth")
+    with fp32_matmul():
+        fit_synthetic(ckpt_out=short, device="cuda", **SHORT_FIT)
+    rule = adam_rule(init_sd, load_pth(os.path.join(work, "mesh_short.pth"))[0],
+                     load_pth(short)[0])
+    log(f"mesh-only train ({n // 2}, 2) vs one card, two float32 steps with TF32 off (B=32): "
+        f"parameters: relative L2 of the movement {rule['rel_l2_of_movement']:.3e} (tol 0.2), "
+        f"max_abs_diff {rule['max_abs']:.3e}, elements off by > 0.5 lr "
+        f"{rule['frac_half_lr']:.2e} | {smi}")
+    if rule["rel_l2_of_movement"] > 0.2:
+        raise AssertionError("two (2, 2) training steps disagree with one card's")
+    seen = json.load(open(os.path.join(work, "mesh_train.json")))
+    first = seen[0]["wall_seconds"]
+    mesh_sps = 10 * timed_outer / (seen[-1]["wall_seconds"] - first)
+    one = timed_fit(work, smi, "float32", timed_outer)
+    rule = adam_rule(init_sd, load_pth(os.path.join(work, "mesh_train.pth"))[0],
+                     load_pth(one["path"])[0])
+    loss_rel = max(abs(m["loss"] - l1) / l1 for m, l1 in zip(seen, one["losses"]))
+    log(f"mesh-only train ({n // 2}, 2) vs one card (B=32, pools 128+128, n_inner=10, "
+        f"{10 * (1 + timed_outer)} steps, phase 5's precision): steps/s {mesh_sps:.3f} vs "
+        f"{one['steps_per_s']:.3f} ({mesh_sps / one['steps_per_s']:.2f}x); first outer call "
+        f"{first:.3f} s vs {one['first_outer_s']:.3f} s; losses per outer call "
+        f"{[round(m['loss'], 5) for m in seen]} vs {[round(v, 5) for v in one['losses']]} (max "
+        f"rel diff {loss_rel:.2e}, tol 0.02); parameters: relative L2 of the movement "
+        f"{rule['rel_l2_of_movement']:.3e} (tol 1.0: runs that differ in rounding drift apart "
+        f"under Adam, whose updates are ±lr wherever a gradient is within rounding of 0), "
+        f"max_abs_diff {rule['max_abs']:.3e} | {smi}")
+    if loss_rel > 0.02 or rule["rel_l2_of_movement"] > 1.0:
+        raise AssertionError("(2, 2) training disagrees with one card")
+    os.remove(wav)
+    return recs
+
+
+def per_card_kernels(devices, smi: str) -> dict:
+    """K1 (every mode and output type), K2 and K3 on each card at the main
+    path's shapes, launched from a thread whose current device is cuda:0,
+    each against its plain version on the same card; returns each kernel's
+    largest error over the cards."""
+    from softspoken_tpu_torch.ops import adpcm
+    from softspoken_tpu_torch.ops import dft_mel as dm
+    from softspoken_tpu_torch.ops import frame_mel as fm
+    from softspoken_tpu_torch.ops import mel as melops
+
+    worst = {"frame_mel": 0.0, "dft_mel": 0.0, "adpcm_decode": 0.0}
+    rng = np.random.default_rng(17)
+    buf_np = rng.standard_normal(3_439_800).astype(np.float32)
+    starts_np = (np.arange(128) * 13_230).astype(np.int32)
+    wire_np = adversarial_adpcm_wire(9_762, seed=5)
+    n_adpcm = 9_762 * adpcm.SPB - 160
+
+    def check(dev):
+        torch.cuda.set_device(0)
+        buf = torch.from_numpy(buf_np).to(dev)
+        starts = torch.from_numpy(starts_np).to(dev)
+        line = []
+        for mode in ("highest", "high", "default"):
+            for dt in (torch.float32, torch.bfloat16):
+                got = fm.log_mel_windows_fused(buf, starts, mode, dt)
+                torch.cuda.synchronize(dev)
+                ref = fm.log_mel_windows_fused_ref(buf, starts, mode, dt)
+                err = float((got.float() - ref.float()).abs().max())
+                tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32
+                if got.device != dev or not bool(torch.isfinite(got.float()).all()) or err > tol:
+                    raise AssertionError(f"frame_mel {mode}/{dt} on {dev}: error {err}")
+                worst["frame_mel"] = max(worst["frame_mel"], err)
+                line.append(f"K1 {mode}/{str(dt)[6:]} {err:.2e}")
+        frames = melops.gather_frames(buf, starts)
+        got = dm.log_mel_from_frames_dft(frames)
+        torch.cuda.synchronize(dev)
+        err = float((got - dm.log_mel_from_frames_dft_ref(frames)).abs().max())
+        if got.device != dev or err > TOL_DFT_MEL:
+            raise AssertionError(f"dft_mel on {dev}: error {err}")
+        worst["dft_mel"] = max(worst["dft_mel"], err)
+        wire = torch.from_numpy(wire_np).to(dev)
+        got = adpcm.decode_device(wire, n_adpcm)
+        torch.cuda.synchronize(dev)
+        if got.device != dev or not torch.equal(got, adpcm.decode_device_ref(wire, n_adpcm)):
+            raise AssertionError(f"adpcm_decode on {dev} is not bit-equal")
+        log(f"kernels on {dev} from a cuda:0 thread: {', '.join(line)}, K2 {err:.2e} "
+            f"(tol {TOL_DFT_MEL:.0e}), K3 bit-equal | {smi}")
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        for dev in devices:
+            ex.submit(check, dev).result()
+    return worst
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only what needs several cards (slice 14), over every visible card")
     ap.add_argument("--first-detect", nargs=2, metavar=("MODE", "WAV"),
                     help="one case of the first-detect measurement (a subprocess of "
                          "the full run): MODE inline or runner")
@@ -2914,6 +3536,8 @@ def main() -> int:
     work = os.path.join(HERE, "build", "softspoken_tpu_torch", "smoke")
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
+    if args.mesh_only:
+        return finish(t0, mesh_only(smi, peaks), smi)
     tc = phase_toolchain()
     k1 = phase_frame_mel(peaks)
     k2 = phase_dft_mel(peaks)
@@ -2937,6 +3561,9 @@ def main() -> int:
         phase_parity(wav60)
         k2["launches"] = phase_host_path(work, wav)
         phase_host_parity(wav60)
+        mesh_launches = phase_mesh(work, wav, wav60, smi)
+        for rec in (k1, k2, k3):
+            rec["launches_mesh"] = mesh_launches[rec["name"]]
         phase_train(work, wav60, smi)
         phase_flac(work, smi)
         phase_containers(work)
@@ -2959,8 +3586,14 @@ def main() -> int:
                                       for fmt, n in codec_launches.items()}
         os.remove(wav)
         os.remove(wav60)
+    return finish(t0, [k1, k2, k3], smi)
+
+
+def finish(t0: float, recs: list, smi: str) -> int:
+    """The closing lines: the kernel records, the card's name and power
+    limit, and the contract's last line."""
     log(f"total {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [k1, k2, k3]}))
+    log(json.dumps({"kernels": recs}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

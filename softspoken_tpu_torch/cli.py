@@ -31,8 +31,17 @@ The pipeline, mel kernel and
 resampler are chosen in the ``--config`` JSON (``{"engine": {"pipeline":
 "host", "mel_kernel": "pallas"}}``).  ``detect`` and ``silence`` print a
 JSON report and exit nonzero when any file failed; ``doctor`` exits nonzero
-when a probe failed.  ``detect --mesh/--distributed`` (multi-GPU) raise
-``NotImplementedError``.
+when a probe failed.
+
+Multi-card: ``detect --mesh`` shards each batch's windows over every
+visible card in one process; ``detect --distributed`` runs one process per
+card (``torch.distributed``: ``--coordinator/--num-processes/--process-id``,
+or ``torchrun --nproc-per-node N -m softspoken_tpu_torch detect ...
+--distributed``), each on its round-robin share of the files, and
+``project merge-detections`` gathers their stores; ``train --mesh`` trains
+over every visible card as ``data × seq`` parallelism, one process per card
+(started here, or by ``torchrun``).  With ``--device cpu`` they run on the
+CPU over gloo.
 """
 
 from __future__ import annotations
@@ -139,10 +148,10 @@ def cmd_project(args) -> None:
         remaining = pm.remove_from_file_list([os.path.abspath(f) for f in args.files])
         print(f"{len(remaining)} file(s) remain")
     elif args.action == "merge-detections":
-        raise NotImplementedError(
-            "project merge-detections (parallel/distributed.py, the per-process "
-            "stores of detect --distributed) is not ported to softspoken_tpu_torch "
-            "yet (ROADMAP.md §1, multi-GPU)")
+        from .parallel import merge_partition_stores
+
+        proj = _active_project(pm, args.name)
+        print(json.dumps(merge_partition_stores(proj["detections_file"])))
 
 
 # ---------------------------------------------------------------------------
@@ -150,23 +159,36 @@ def cmd_project(args) -> None:
 # ---------------------------------------------------------------------------
 
 def cmd_detect(args) -> Dict:
+    cfg = _load_config(args)
+    device = args.device
+    joined = False
+    if args.distributed:
+        from .parallel import init_distributed
+
+        dev = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                               device=args.device)
+        joined = dev is not None
+        device = dev if joined else device
+    try:
+        return _detect(args, cfg, device)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _detect(args, cfg, device) -> Dict:
+    """``detect`` in the JAX order: the detector, the file list, this
+    process's partition and store (``--distributed``), the mesh wrap
+    (``--mesh``), then the run."""
     from .ckpt import fixture_state_dict
     from .engine import Detector
     from .project import DetectionStore
     from .runtime import DetectRunner, RunCallbacks
 
-    multi = [f for f, v in (("--mesh", args.mesh), ("--distributed", args.distributed),
-                            ("--coordinator", args.coordinator),
-                            ("--num-processes", args.num_processes),
-                            ("--process-id", args.process_id)) if v is not None and v is not False]
-    if multi:
-        raise NotImplementedError(
-            f"detect {'/'.join(multi)} (multi-GPU: parallel/mesh.py and "
-            "parallel/distributed.py) is not ported to softspoken_tpu_torch yet "
-            "(ROADMAP.md §1, multi-GPU)")
-    cfg = _load_config(args)
     sd = fixture_state_dict(seed=0) if args.random_init else None
-    det = Detector(cfg, state_dict=sd, checkpoint_path=args.checkpoint, device=args.device)
+    det = Detector(cfg, state_dict=sd, checkpoint_path=args.checkpoint, device=device)
     if args.files:
         files = [os.path.abspath(f) for f in args.files]
         store_path = args.out or "detections.csv"
@@ -175,7 +197,23 @@ def cmd_detect(args) -> Dict:
         proj = _active_project(pm, args.project)
         files = pm.get_unprocessed_list()
         store_path = proj["detections_file"]
+    if args.distributed:
+        from .parallel import distributed as pdist
+
+        files = pdist.partition_files(files, args.process_id, args.num_processes)
+        # one store per process: detections gather through the filesystem
+        # (project merge-detections), one writer per file
+        pid = args.process_id if args.process_id is not None else pdist.process_index()
+        if pid or (args.num_processes or pdist.process_count()) > 1:
+            base, ext = os.path.splitext(store_path)
+            store_path = f"{base}.p{pid}{ext}"
     store = DetectionStore(store_path)
+    if args.mesh:
+        from .parallel import MeshDetector, make_mesh
+
+        # every visible card; a CPU detector gets a one-entry CPU mesh
+        cpu = det.device.type == "cpu"
+        det = MeshDetector(det, make_mesh(("data",), devices=[det.device] if cpu else None))
     cb = RunCallbacks(
         file_started=lambda f: print(f"→ {f}", flush=True),
         message=lambda m: print(f"   {m}", flush=True),
@@ -434,20 +472,25 @@ def _add_eval_parser(sub) -> None:
     pe.set_defaults(func=cmd_eval)
 
 
-def cmd_train(args) -> Dict:
+def cmd_train(args) -> Optional[Dict]:
+    if not args.synthetic and not (args.speech_dir and args.noise_dir):
+        raise SystemExit("train: need --speech-dir and --noise-dir "
+                         "(or use --synthetic)")
+    if args.mesh:
+        return _train_mesh(args)
+    metrics = _fit(args)
+    print(json.dumps(metrics), flush=True)
+    return metrics
+
+
+def _fit(args, mesh=None) -> Dict:
+    """The trainer the flags name, on ``args.device`` or over ``mesh``."""
     from .train import fit_synthetic
     from .train.fit import fit
 
-    if args.mesh:
-        raise NotImplementedError(
-            "train --mesh (multi-GPU) is not ported to softspoken_tpu_torch yet "
-            "(ROADMAP.md §1, multi-GPU and the sharded steps)")
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     if not args.synthetic:
-        if not (args.speech_dir and args.noise_dir):
-            raise SystemExit("train: need --speech-dir and --noise-dir "
-                             "(or use --synthetic)")
-        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-        metrics = fit(
+        return fit(
             args.speech_dir,
             args.noise_dir,
             steps=args.steps,
@@ -456,21 +499,20 @@ def cmd_train(args) -> Dict:
             ckpt_out=args.out,
             augmentations=args.augment,
             seed=args.seed,
+            mesh=mesh,
             resume=args.resume,
             train_dtype=args.dtype,
             boundary_weight=args.boundary_weight,
             device=args.device,
         )
-        print(json.dumps(metrics), flush=True)
-        return metrics
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    metrics = fit_synthetic(
+    return fit_synthetic(
         steps=args.steps,
         batch_size=args.batch_size,
         learning_rate=args.lr,
         ckpt_out=args.out,
         augmentations=args.augment,
         seed=args.seed,
+        mesh=mesh,
         n_inner=args.n_inner,
         pool_speech=args.pool_size,
         pool_noise=args.pool_size,
@@ -486,6 +528,58 @@ def cmd_train(args) -> Dict:
         stall_abort_s=args.stall_abort,
         device=args.device,
     )
+
+
+def _train_mesh(args) -> Optional[Dict]:
+    """``train --mesh``: one process per card (``--device cpu``: one per
+    ``torchrun`` process, else one), as a ``(n // 2, 2)`` ``data × seq``
+    mesh when n is even and above 1, else ``(n, 1)`` (the JAX CLI's shape).
+    Started as one process it spawns a worker per card; under ``torchrun``
+    (``WORLD_SIZE`` set) this process is one rank.  Rank 0 alone writes the
+    checkpoint and prints the metrics."""
+    import torch
+
+    from .engine.detector import resolve_device
+    from .parallel import distributed as pdist
+
+    if "WORLD_SIZE" in os.environ:
+        return _mesh_rank(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                          "env://", args)
+    if _on_cpu(args):
+        n = 1
+    else:
+        resolve_device(args.device)  # raises without a card
+        n = torch.cuda.device_count()
+    init_method = f"tcp://localhost:{pdist.free_port()}"
+    if n == 1:
+        return _mesh_rank(0, 1, init_method, args)
+    pdist.spawn(_mesh_rank, n, args=(n, init_method, args))
+    return None
+
+
+def _on_cpu(args) -> bool:
+    return args.device is not None and args.device.split(":")[0] == "cpu"
+
+
+def _mesh_rank(rank: int, n: int, init_method: str, args) -> Optional[Dict]:
+    """Rank ``rank`` of ``n`` in ``train --mesh`` (the worker ``spawn``
+    runs, too): joins the group, trains its shard, and on rank 0 prints
+    the metrics."""
+    import torch.distributed as dist
+
+    from .parallel import distributed as pdist
+    from .parallel import make_mesh
+
+    seq = 2 if n % 2 == 0 and n > 1 else 1
+    mesh = make_mesh(("data", "seq"), shape=(n // seq, seq),
+                     devices=pdist.rank_devices(rank, n, args.device))
+    pdist.init_process_group(init_method, n, rank, list(mesh.devices.flat)[rank])
+    try:
+        metrics = _fit(args, mesh)
+    finally:
+        dist.destroy_process_group()
+    if rank != 0:
+        return None
     print(json.dumps(metrics), flush=True)
     return metrics
 
@@ -509,7 +603,9 @@ def _add_train_parser(sub) -> None:
     pt.add_argument("--out", help="checkpoint output (.pth)")
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--augment", nargs="*", default=["add_reverb", "reduce_volume"])
-    pt.add_argument("--mesh", action="store_true", help="multi-GPU (not ported yet)")
+    pt.add_argument("--mesh", action="store_true",
+                    help="data × seq parallelism over every visible card, one "
+                         "process per card (under torchrun: one rank per process)")
     pt.add_argument("--noise-extra", nargs="*", default=[],
                     choices=["music", "granular", "drone", "impact_chain", "crackle"],
                     help="opt-in confuser textures mixed into the noise pool "
@@ -717,11 +813,15 @@ def _add_detect_parser(sub) -> None:
                    help="persist fused-pipeline progress every N chunks so a "
                         "killed run resumes mid-file (engine/journal.py); "
                         "sidecars live in .chunk_progress/ next to the CSV")
-    for flag, kw in (("--mesh", dict(action="store_true")),
-                     ("--distributed", dict(action="store_true")),
-                     ("--coordinator", {}), ("--num-processes", dict(type=int)),
-                     ("--process-id", dict(type=int))):
-        d.add_argument(flag, help="multi-GPU (not ported yet)", **kw)
+    d.add_argument("--mesh", action="store_true",
+                   help="shard each batch's windows over every visible card")
+    d.add_argument("--distributed", action="store_true",
+                   help="multi-process: join the process group (torch.distributed) and "
+                        "detect this process's round-robin share of the file list "
+                        "into <csv>.p<id>; gather with `project merge-detections`")
+    d.add_argument("--coordinator", help="(--distributed) coordinator address host:port")
+    d.add_argument("--num-processes", type=int, help="(--distributed) process count")
+    d.add_argument("--process-id", type=int, help="(--distributed) this process's id")
     d.add_argument("--device", help="torch device (default: the CUDA card)")
     d.set_defaults(func=cmd_detect)
 

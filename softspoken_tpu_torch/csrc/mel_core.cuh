@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace mel_core {
 
 constexpr int kWin = 512;                  // samples per frame
@@ -457,21 +459,24 @@ mel_core_kernel(const Loader ld, const __nv_bfloat16* __restrict__ stream,
   }
 }
 
-// Launch one block per tile.  The opt-in to more than 48 KiB of dynamic
-// shared memory is made once per process and device.
+// Launch one block per tile on the current device (the wrapper makes the
+// tensors' device current).  The opt-in to more than 48 KiB of dynamic
+// shared memory is made once per device and kernel instance: the flag is
+// atomic because the detector's worker threads launch concurrently, and
+// two threads that both find it unset both make the (idempotent) call.
 template <class Loader, int NP>
 cudaError_t launch(const Loader& ld, int n_tiles, const void* stream_tables, void* out,
                    cudaStream_t stream) {
-  static bool opted_in[64] = {};
+  static std::atomic<bool> opted_in[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
+  if (!opted_in[dev].load(std::memory_order_acquire)) {
     e = cudaFuncSetAttribute(mel_core_kernel<Loader, NP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<Loader>::kBytes);
     if (e != cudaSuccess) return e;
-    opted_in[dev] = true;
+    opted_in[dev].store(true, std::memory_order_release);
   }
   mel_core_kernel<Loader, NP><<<n_tiles, kThreads, Layout<Loader>::kBytes, stream>>>(
       ld, static_cast<const __nv_bfloat16*>(stream_tables), out);

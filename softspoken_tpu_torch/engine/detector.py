@@ -178,6 +178,7 @@ class Detector:
             raise ValueError(f"unknown mel_kernel {mk!r}")
         self.mel_kernel = mk
         self._engines: Dict[tuple, object] = {}
+        self._fused_mesh = None  # the parallel.Mesh a MeshDetector bound, if any
         self._digest: Optional[str] = None
 
     def weights_digest(self) -> str:
@@ -190,8 +191,12 @@ class Detector:
         return self._digest
 
     # ------------------------------------------------------------------
-    def _forward(self, wave: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        """(chunk_buf,) f32, (B,) int32 on the device → mask logits (B, 256) f32."""
+    def _forward(self, wave: torch.Tensor, starts: torch.Tensor,
+                 model: Optional[torch.nn.Module] = None) -> torch.Tensor:
+        """(chunk_buf,) f32, (B,) int32 on the device → mask logits (B, 256)
+        f32, through ``model`` (default: the detector's own; a
+        ``parallel.MeshDetector`` passes its replica on another card)."""
+        model = self.model if model is None else model
         with torch.inference_mode(), melops.fp32_matmul():
             if self.mel_kernel == "fused":
                 from ..ops.frame_mel import log_mel_windows_fused
@@ -204,7 +209,14 @@ class Detector:
                 mel = log_mel_windows_dft(wave, starts)  # float32; the model casts
             else:
                 mel = melops.log_mel_windows(wave, starts, self.mel_mode)
-            return self.model.mask_logits(mel)
+            return model.mask_logits(mel)
+
+    def _forward_chunk(self, wave: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        """(chunk_buf,) f32 + (nb, B) int32 window starts → mask logits
+        (nb·B, 256), batch by batch.  Both pipelines call this;
+        ``parallel.MeshDetector`` reroutes it to shard each batch over a
+        mesh."""
+        return torch.cat([self._forward(wave, starts[i]) for i in range(starts.shape[0])])
 
     def _forward_full(self, wave: torch.Tensor, starts: torch.Tensor):
         """Like ``_forward`` through the plain mel chain, with the spec head:
@@ -320,8 +332,7 @@ class Detector:
                     wave = host.to(self.device, non_blocking=True)
                     st = torch.from_numpy(local).to(self.device, non_blocking=True)
                 with tt("dispatch"):
-                    logits = torch.cat([self._forward(wave, st[b0: b0 + B])
-                                        for b0 in range(0, len(local), B)])
+                    logits = self._forward_chunk(wave, st.view(-1, B))
                 with tt("fetch"):
                     out.append(logits[:n].cpu().numpy())
                 if progress is not None:

@@ -102,6 +102,10 @@ class FusedStreamingEngine:
             raise ValueError(f"unknown wire kind {kind!r}")
         self.det = detector
         self.device = detector.device
+        # under a parallel.MeshDetector, each batch's windows shard over the
+        # mesh's data axis; the grid stays on the detector's card
+        self.mesh = getattr(detector, "_fused_mesh", None)
+        self._forward_chunk = detector._forward_chunk
         self.cfg = cfg = detector.cfg
         self.kind = kind
         self.native_sr = native_sr
@@ -167,8 +171,7 @@ class FusedStreamingEngine:
             raise RuntimeError(f"chunk window out of range: lo={lo} len={x.shape[0]}")
         internal = x[lo: lo + self.buf_len]
 
-        logits = torch.cat([self.det._forward(internal, starts[i])
-                            for i in range(self.nb)])          # (chunk_w, 256)
+        logits = self._forward_chunk(internal, starts)            # (chunk_w, 256)
         sum_g, cnt_g = self._accumulate(
             torch.stack([logits * valid[:, None], valid[:, None].expand(self.chunk_w, 256)]),
             place)
@@ -268,8 +271,12 @@ class FusedStreamingEngine:
         return repeats * self.chunk_w * step / wall
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = {self.device}
+        if self.mesh is not None:
+            devices.update(self.mesh.devices.flat)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # ------------------------------------------------------------------
     def run(
@@ -487,10 +494,11 @@ _ENGINES_LOCK = threading.Lock()
 
 
 def get_fused_engine(detector: Detector, native_sr: int, kind: str) -> FusedStreamingEngine:
-    """The detector's engine for (native_sr, kind), built once under a lock
-    (worker threads of the runner ask for it concurrently)."""
+    """The detector's engine for (native_sr, kind) and its mesh, built once
+    under a lock (worker threads of the runner ask for it concurrently)."""
+    mesh = getattr(detector, "_fused_mesh", None)
     key = (native_sr, kind, detector.cfg.engine.device_batch,
-           detector.cfg.engine.chunk_seconds)
+           detector.cfg.engine.chunk_seconds, id(mesh) if mesh is not None else None)
     with _ENGINES_LOCK:
         eng = detector._engines.get(key)
         if eng is None:

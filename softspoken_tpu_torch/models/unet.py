@@ -34,11 +34,18 @@ Training mode (``model.train()``) follows the JAX package's Flax module
 A bfloat16 training step runs the module under ``torch.autocast`` with
 float32 parameters (``train/loop.py``).  Eval mode computes what it always
 did.
+
+Sharded training (``parallel/grid.py::shard_model``) sets ``shard`` on the
+BatchNorms and the kernel-3 convolutions: the BatchNorm statistics then
+cover every rank's shard, and each kernel-3 convolution first takes one frame
+from each neighbour along time (the last axis), which is split over the
+ranks of the ``seq`` axis.  Dropout masks then come from ``RowDraws``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -62,12 +69,18 @@ RES_BLOCK_SHAPES = {
 
 class _TrainStatsBN:
     """BatchNorm whose training mode is Flax's (see the module docstring);
-    eval mode is torch's, unchanged."""
+    eval mode is torch's, unchanged.  With ``shard`` set (a
+    ``parallel.grid.ProcessGrid``) the batch statistics cover every rank's
+    rows and frames."""
+
+    shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
+        if self.shard is not None:
+            return self._sharded_forward(x, dims)
         with torch.no_grad():
             stat_t = torch.promote_types(x.dtype, torch.float32)
             var, mean = torch.var_mean(x.to(stat_t), dim=dims, correction=0)
@@ -76,6 +89,29 @@ class _TrainStatsBN:
             self.num_batches_tracked.add_(1)
         # batch statistics, biased variance, float32 arithmetic
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _sharded_forward(self, x: torch.Tensor, dims) -> torch.Tensor:
+        """The same normalization with statistics over every rank's shard
+        (equal shards): each rank's own mean and biased variance
+        (``torch.var_mean``), gathered from every rank with a
+        differentiable all-gather and merged exactly (Chan et al.: the
+        variance is the mean of the shards' variances plus the variance of
+        their means; no ``E[x²] − mean²`` cancellation), so that the
+        gradient flows through the global mean and variance as through
+        the unsharded step's."""
+        stat_t = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(stat_t)
+        var_k, mean_k = torch.var_mean(xs, dim=dims, correction=0)
+        stats = self.shard.all_gather(torch.stack([mean_k, var_k]))  # (world, 2, C)
+        mean = stats[:, 0].mean(0)
+        var = stats[:, 1].mean(0) + ((stats[:, 0] - mean) ** 2).mean(0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean.detach(), alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var.detach(), alpha=BN_MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (xs - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 class BatchNorm2d(_TrainStatsBN, nn.BatchNorm2d):
@@ -86,13 +122,29 @@ class BatchNorm1d(_TrainStatsBN, nn.BatchNorm1d):
     pass
 
 
+@dataclasses.dataclass
+class RowDraws:
+    """The dropout generator of a shard that holds rows [start, start + B)
+    of a batch of ``total`` rows: every mask is drawn for the whole batch
+    and sliced, so the shard drops what the unsharded step drops."""
+
+    generator: torch.Generator
+    total: int
+    start: int
+
+
 def channel_dropout(x: torch.Tensor, p: float,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Union[torch.Generator, RowDraws, None] = None) -> torch.Tensor:
     """Drop whole channels of (B, C, ...) with probability ``p`` and scale the
     kept ones by 1/(1−p): Flax ``nn.Dropout(p, broadcast_dims=…)`` over every
     axis but batch and channel (Dropout2d / Dropout1d)."""
     keep_prob = 1.0 - p
     shape = x.shape[:2] + (1,) * (x.dim() - 2)
+    if isinstance(generator, RowDraws):
+        full = (generator.total,) + shape[1:]
+        keep = (torch.rand(full, generator=generator.generator, device=x.device)
+                [generator.start: generator.start + x.shape[0]] < keep_prob)
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
     keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -128,6 +180,33 @@ class PointwiseConv1d(_PointwiseConv, nn.Conv1d):
     pass
 
 
+class _HaloConv:
+    """A kernel-3 convolution whose time axis (the last) may be split over
+    the ranks of the ``seq`` axis: with ``shard`` set, it takes one frame
+    from each neighbouring shard (zeros at the ends of the sequence, the
+    zero padding's values) and pads only the other axes itself.  The
+    weights and the state dict keys are those of ``nn.Conv2d`` /
+    ``nn.Conv1d``."""
+
+    shard = None
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.shard is None:
+            return super()._conv_forward(x, weight, bias)
+        padding = tuple(self.padding[:-1]) + (0,)
+        return self._conv(self.shard.halo(x), weight, bias, self.stride, padding,
+                          self.dilation, self.groups)
+
+
+class HaloConv2d(_HaloConv, nn.Conv2d):
+    _conv = staticmethod(F.conv2d)
+
+
+class HaloConv1d(_HaloConv, nn.Conv1d):
+    _conv = staticmethod(F.conv1d)
+
+
 class ResBlock(nn.Module):
     """Residual conv block (pytorch_neural_nets.py:7-77), 2-D or 1-D.
 
@@ -138,7 +217,7 @@ class ResBlock(nn.Module):
     def __init__(self, cin: int, cout: int, folded: bool = False, oned: bool = False,
                  dropout_p: float = DROPOUT_P):
         super().__init__()
-        conv = nn.Conv1d if oned else nn.Conv2d
+        conv = HaloConv1d if oned else HaloConv2d
         bn = BatchNorm1d if oned else BatchNorm2d
         self.dropout_p = dropout_p
 
@@ -154,7 +233,7 @@ class ResBlock(nn.Module):
         self.conv2 = seq(cout, 3, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Union[torch.Generator, RowDraws, None] = None) -> torch.Tensor:
         identity = self.residual(x)
         out = F.relu(self.conv1(x))
         out = F.relu(self.conv2(out) + identity)

@@ -226,8 +226,9 @@ def decode_device(wire: torch.Tensor, n_samples: int) -> torch.Tensor:
     out = torch.empty(n_samples, dtype=torch.float32, device=wire.device)
     if n_samples == 0:
         return out
-    stream = torch.cuda.current_stream(wire.device).cuda_stream
-    rc = _lib().adpcm_decode_launch(wire.data_ptr(), nb, out.data_ptr(), n_samples, stream)
+    with torch.cuda.device(wire.device):  # the kernel runs on the current device
+        rc = _lib().adpcm_decode_launch(wire.data_ptr(), nb, out.data_ptr(), n_samples,
+                                        torch.cuda.current_stream(wire.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"adpcm_decode kernel launch failed: cudaError {rc}")
     count_launch(NAME)

@@ -92,10 +92,11 @@ def log_mel_from_frames_dft(frames: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, N_MELS, F), dtype=torch.float32, device=frames.device)
     if B * F == 0:
         return out
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    rc = _lib().dft_mel_launch(frames.data_ptr(), B * F, F,
-                               _device_tables(frames.device).data_ptr(),
-                               out.data_ptr(), stream)
+    with torch.cuda.device(frames.device):  # the kernel runs on the current device
+        rc = _lib().dft_mel_launch(frames.data_ptr(), B * F, F,
+                                   _device_tables(frames.device).data_ptr(),
+                                   out.data_ptr(),
+                                   torch.cuda.current_stream(frames.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dft_mel kernel launch failed: cudaError {rc}")
     count_launch(NAME)

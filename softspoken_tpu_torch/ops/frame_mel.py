@@ -98,11 +98,14 @@ def log_mel_windows_fused(buf: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((B, N_MELS, FRAMES), dtype=out_dtype, device=buf.device)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(buf.device).cuda_stream
-    rc = _lib().frame_mel_launch(
-        buf.data_ptr(), buf.shape[0], starts.data_ptr(), B,
-        _device_tables(buf.device, mode).data_ptr(), out.data_ptr(),
-        _MODE_PARTS[mode], int(out_dtype == torch.bfloat16), stream)
+    # the kernel runs on the current device: make it buf's, whatever the
+    # calling thread's current device is
+    with torch.cuda.device(buf.device):
+        rc = _lib().frame_mel_launch(
+            buf.data_ptr(), buf.shape[0], starts.data_ptr(), B,
+            _device_tables(buf.device, mode).data_ptr(), out.data_ptr(),
+            _MODE_PARTS[mode], int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(buf.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"frame_mel kernel launch failed: cudaError {rc}")
     count_launch(NAME)

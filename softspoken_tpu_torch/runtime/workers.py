@@ -149,6 +149,9 @@ class DetectRunner:
         files = list(dict.fromkeys(files))  # a path listed twice runs once
         total = len(files)
         self.meter.reset()
+        # per-card throughput counts the mesh a MeshDetector bound
+        mesh = getattr(self.detector, "_fused_mesh", None)
+        self.meter.n_chips = mesh.size if mesh is not None else 1
         already = self.store.processed_files() if self.cfg.engine.skip_processed_files else set()
         todo = iter([p for p in files if p not in already])
         journal_dir = self.journal_dir()

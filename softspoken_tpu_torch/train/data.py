@@ -88,6 +88,7 @@ def build_batch(
     device=None,
     mel_mode: Optional[str] = None,
     timings: Optional[Dict[str, float]] = None,
+    rows: slice = slice(None),
 ) -> Dict[str, torch.Tensor]:
     """Compose (B, 66150) speech + noise into a training batch on ``device``
     (the CUDA card unless the caller passes ``"cpu"``).
@@ -105,6 +106,9 @@ def build_batch(
     own parameters.  ``mel_mode`` defaults to ``ops.mel.train_mel_mode``.
     ``timings``, when given, receives the seconds spent augmenting ("augment")
     and computing the mels ("mel"), the device synchronized at each boundary.
+    ``rows`` picks the rows to build (a shard of mesh training): every draw
+    is made for the whole batch, the augmentation and the mels only for
+    these rows, which the returned batch holds.
     """
     dev = resolve_device(device)
     B = speech_clips.shape[0]
@@ -119,7 +123,7 @@ def build_batch(
     mix = speech_clips + noise_scaled
 
     def upload(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(x[rows], np.float32)).to(dev)
 
     t0 = time.perf_counter()
     mix_t = upload(mix)
@@ -127,13 +131,18 @@ def build_batch(
         # per-clip parameter draws (the reference's semantics, and the device
         # trainer's): one draw for the whole batch would give every row the
         # same reverb, band-pass and volume
-        rows = []
+        own = range(B)[rows]
+        built = []
         for b in range(B):
+            seed = int(rng.integers(0, 2**31 - 1))  # every row's draw, built or not
+            if b not in own:
+                continue
             gen = torch.Generator()
-            gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
+            gen.manual_seed(seed)
             params = aug.get_parameters(gen, augmentations)
-            rows.append(aug.apply_augmentations(mix_t[b: b + 1], SR, augmentations, params))
-        mix_t = torch.cat(rows, dim=0)
+            i = b - own.start
+            built.append(aug.apply_augmentations(mix_t[i: i + 1], SR, augmentations, params))
+        mix_t = torch.cat(built, dim=0)
     if timings is not None:
         _sync(dev)
         t1 = time.perf_counter()

@@ -396,3 +396,53 @@ def make_fused_train_step(synth_fn: SynthBatchFn, n_inner: int = 8,
         return {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
 
     return fused
+
+
+def slice_draws(draws: Draws, rows: slice) -> Draws:
+    """The draws of rows ``rows`` of the batch (every per-row tensor cut
+    along its first axis)."""
+    out: Draws = {}
+    for k, v in draws.items():
+        out[k] = slice_draws(v, rows) if isinstance(v, dict) else v[rows]
+    return out
+
+
+def make_sharded_fused_train_step(state, synth_fn: SynthBatchFn, mesh, n_inner: int = 8,
+                                  boundary_weight: float = 0.0,
+                                  draw_fn: Optional[DrawFn] = None):
+    """``make_fused_train_step`` over ``mesh`` in a process group of one
+    process per mesh entry (every rank calls this once): each inner step
+    draws the whole batch on every rank (the one-card run's draws, from
+    the same generator), synthesizes only this rank's rows, keeps this
+    rank's time block, and takes the sharded step
+    (``loop.make_sharded_train_step``'s).  Returns ``step(state,
+    speech_pool, noise_pool, generator) -> metrics``, the global metrics
+    averaged over the inner steps."""
+    from ..parallel.grid import ProcessGrid, shard_batch, shard_model
+    from .loop import batch_partition_specs, global_metrics, sharded_step
+
+    grid = ProcessGrid(mesh)
+    B = synth_fn.batch_size
+    if B % grid.data:
+        raise ValueError(f"batch_size ({B}) must be a multiple of the mesh 'data' "
+                         f"axis size ({grid.data})")
+    shard_time = mesh.shape.get("seq", 1) > 1  # a 1-wide axis splits nothing
+    shard_model(state.model, grid, shard_time)
+    specs = batch_partition_specs(mesh, shard_time)
+    per = B // grid.data
+    rows = slice(grid.d * per, (grid.d + 1) * per)
+    draw = draw_fn or synth_fn.draw
+
+    def fused(state, speech_pool: torch.Tensor, noise_pool: torch.Tensor,
+              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        ms = []
+        for _ in range(n_inner):
+            with torch.no_grad():
+                draws = draw(generator, speech_pool.shape[0], noise_pool.shape[0])
+                batch = synth_fn.transform(speech_pool, noise_pool, slice_draws(draws, rows))
+                batch = shard_batch(batch, specs, grid, axes=("seq",))
+            ms.append(sharded_step(state, batch, grid, shard_time, boundary_weight))
+        return global_metrics({k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]},
+                              grid)
+
+    return fused

@@ -7,6 +7,13 @@
   * ``fit_synthetic`` trains from the synthetic corpus, every step on the
     device.
 
+Both take ``mesh`` (``parallel.make_mesh(("data", "seq"), ...)``) inside a
+process group of one process per mesh entry (``train --mesh`` starts
+them): each rank trains on its own mesh entry's device with the sharded
+step (``loop.make_sharded_train_step``), makes every draw of the global
+batch as the one-card run does, builds only its own rows, and rank 0 alone
+writes the checkpoint and logs.
+
 For ``fit_synthetic`` the host makes two clip pools from a seed
 (``train/synth.py``) and uploads them once; every step then runs on the
 device (``train/device_data.py``):
@@ -64,7 +71,9 @@ class ClipSampler:
         self.tile_short = tile_short
         self._lengths = {f: internal_length(f) for f in self.files}
 
-    def sample(self) -> np.ndarray:
+    def sample(self, read: bool = True) -> np.ndarray:
+        """One clip; ``read=False`` makes the clip's draws and returns zeros
+        without reading (another rank's row of a sharded batch)."""
         f = self.files[int(self.rng.integers(len(self.files)))]
         n = self._lengths[f]
         start = int(self.rng.integers(max(1, n - D.CLIP + 1)))
@@ -72,9 +81,12 @@ class ClipSampler:
             # a random tiling phase: start 0 would make every draw of a
             # sub-3 s file the same clip (the reference rotates start_idx
             # into the tiled read the same way)
-            clip = D.load_environmental_noise(f, int(self.rng.integers(max(1, n))))
+            phase = int(self.rng.integers(max(1, n)))
+            clip = D.load_environmental_noise(f, phase) if read else None
             if clip is not None:
                 return clip
+        if not read:
+            return np.zeros(D.CLIP, np.float32)
         wav, _ = load_audio(f, start=start)
         clip = np.zeros(D.CLIP, np.float32)
         if wav is not None:
@@ -82,8 +94,10 @@ class ClipSampler:
             clip[:m] = wav[:m]
         return clip
 
-    def batch(self, b: int) -> np.ndarray:
-        return np.stack([self.sample() for _ in range(b)])
+    def batch(self, b: int, rows: slice = slice(None)) -> np.ndarray:
+        """``b`` clips, of which only ``rows`` are read (the rest zeros)."""
+        keep = range(b)[rows]
+        return np.stack([self.sample(read=i in keep) for i in range(b)])
 
 
 def fit(
@@ -111,41 +125,69 @@ def fit(
     builds the batch on ``device`` (the CUDA card unless the caller passes
     ``"cpu"``; raises without a card) and takes one optimizer step.  Every
     ``log_every`` steps and at the last, the losses are read once, logged
-    and passed to ``on_metrics(step, metrics)``.  ``mesh``
-    (multi-GPU) is not ported.
+    and passed to ``on_metrics(step, metrics)``.  With ``mesh`` (see the
+    module docstring) each rank reads and builds only its rows.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is not ported to softspoken_tpu_torch yet "
-            "(ROADMAP.md §1, multi-GPU and the sharded steps)")
     if train_dtype not in DTYPES:
         raise ValueError(f"train_dtype must be one of {sorted(DTYPES)}, got {train_dtype!r}")
-    dev = resolve_device(device)
+    dev, rank = _mesh_device(mesh, device)
     rng = np.random.default_rng(seed)
     speech = ClipSampler(list_wavs(speech_dir), rng, tile_short=False)
     noise = ClipSampler(list_wavs(noise_dir), rng, tile_short=True)
     state = create_train_state(seed, learning_rate, resume=resume,
                                compute_dtype=DTYPES[train_dtype], device=dev)
     step0 = state.step
+    rows = slice(None)
+    if mesh is not None:
+        from .loop import make_sharded_train_step
+
+        sharded, shard = make_sharded_train_step(state, mesh,
+                                                 boundary_weight=boundary_weight)
+        data = mesh.shape["data"]
+        if batch_size % data:
+            raise ValueError(f"batch_size ({batch_size}) must be a multiple of the mesh "
+                             f"'data' axis size ({data})")
+        per = batch_size // data
+        d = rank // mesh.shape.get("seq", 1)
+        rows = slice(d * per, (d + 1) * per)
 
     metrics: Dict[str, float] = {}
     t0 = time.perf_counter()
     for step in range(1, steps + 1):
-        batch = D.build_batch(speech.batch(batch_size), noise.batch(batch_size), rng,
-                              augmentations=augmentations, device=dev)
-        m = train_step(state, batch, boundary_weight)
+        batch = D.build_batch(speech.batch(batch_size, rows), noise.batch(batch_size, rows),
+                              rng, augmentations=augmentations, device=dev, rows=rows)
+        if mesh is None:
+            m = train_step(state, batch, boundary_weight)
+        else:
+            m = sharded(state, shard(batch, axes=("seq",)))  # the rows are its own
         if step % log_every == 0 or step == steps:
             names = sorted(m)
             values = torch.stack([m[k] for k in names]).tolist()  # the one read
             metrics = dict(zip(names, values))
-            log.info("step %d  loss=%.4f  mask=%.4f  spec=%.4f  (%.1f clips/s)",
-                     step, metrics["loss"], metrics["mask_loss"], metrics["spec_loss"],
-                     step * batch_size / (time.perf_counter() - t0))
+            if rank == 0:
+                log.info("step %d  loss=%.4f  mask=%.4f  spec=%.4f  (%.1f clips/s)",
+                         step, metrics["loss"], metrics["mask_loss"], metrics["spec_loss"],
+                         step * batch_size / (time.perf_counter() - t0))
             if on_metrics:
                 on_metrics(step, metrics)
-        if ckpt_out and (step % save_every == 0 or step == steps):
+        if ckpt_out and rank == 0 and (step % save_every == 0 or step == steps):
             _save_checkpoint(ckpt_out, state, step0 + step, fatal=step == steps)
     return metrics
+
+
+def _mesh_device(mesh, device) -> "tuple[torch.device, int]":
+    """(this process's device, its rank): ``device`` (the card unless the
+    caller passes "cpu") and 0 without a mesh; else its mesh entry, which
+    needs the process group that ``train --mesh`` starts."""
+    if mesh is None:
+        return resolve_device(device), 0
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("mesh training needs torch.distributed initialized with one "
+                           "process per mesh entry (train --mesh starts them, or torchrun)")
+    rank = dist.get_rank()
+    return list(mesh.devices.flat)[rank], rank
 
 
 def _host_pools(pools, pin: bool):
@@ -191,15 +233,13 @@ def fit_synthetic(
     the last logged metrics.
 
     ``device``: the CUDA card unless the caller passes ``"cpu"``; raises
-    without a card.  ``mesh`` (multi-GPU) is not ported.
+    without a card.  With ``mesh`` (see the module docstring) each rank
+    synthesizes only its rows.
     """
     from . import synth
-    from .device_data import make_fused_train_step, make_synth_batch_fn
+    from .device_data import (make_fused_train_step, make_sharded_fused_train_step,
+                              make_synth_batch_fn)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is not ported to softspoken_tpu_torch yet "
-            "(ROADMAP.md §1, multi-GPU and the sharded steps)")
     if noise_extra_policy not in ("mixed", "protected"):
         raise ValueError(f"unknown noise_extra_policy {noise_extra_policy!r}")
     if (noise_extra_policy == "protected" and noise_extra_kinds
@@ -212,7 +252,7 @@ def fit_synthetic(
             f"noise_extra_frac={noise_extra_frac}")
     if train_dtype not in DTYPES:
         raise ValueError(f"train_dtype must be one of {sorted(DTYPES)}, got {train_dtype!r}")
-    dev = resolve_device(device)
+    dev, rank = _mesh_device(mesh, device)
     pin = dev.type == "cuda"
 
     def upload(pools):
@@ -238,8 +278,12 @@ def fit_synthetic(
                                    extras_start=extras_start,
                                    extras_snr_range=tuple(noise_extra_snr_range),
                                    extras_silent_prob=noise_extra_silent_prob)
-    step_fn = make_fused_train_step(synth_fn, n_inner=n_inner,
-                                    boundary_weight=boundary_weight)
+    if mesh is None:
+        step_fn = make_fused_train_step(synth_fn, n_inner=n_inner,
+                                        boundary_weight=boundary_weight)
+    else:
+        step_fn = make_sharded_fused_train_step(state, synth_fn, mesh, n_inner=n_inner,
+                                                boundary_weight=boundary_weight)
 
     outer_total = -(-steps // n_inner)
     gen = torch.Generator(device=dev)
@@ -261,12 +305,20 @@ def fit_synthetic(
                 # swap in a fresh pool the moment its background generation
                 # finishes; meanwhile keep training on the current pool.
                 # Generations run on a daemon thread and are not started
-                # near the end of the run.
-                if pool_pending is not None and pool_pending.failed():
+                # near the end of the run.  Under a mesh every rank swaps at
+                # the same step: when the last rank's generation finishes.
+                failed, done = (pool_pending is not None and pool_pending.failed(),
+                                pool_pending is not None and pool_pending.done())
+                if mesh is not None and pool_pending is not None:
+                    failed, done = _on_every_rank(failed, done, dev)
+                    if failed:
+                        raise RuntimeError("background pool refresh failed on a rank "
+                                           f"of the mesh ({pool_pending.error})")
+                if failed:
                     log.warning("background pool refresh failed (%s); will retry",
                                 pool_pending.error)
                     pool_pending = None
-                elif pool_pending is not None and pool_pending.done():
+                elif done:
                     # the pinned copy stays referenced until this outer
                     # iteration's metrics read has waited for the copy
                     pinned = pool_pending.result
@@ -291,18 +343,30 @@ def fit_synthetic(
             if outer % log_every_outer == 0 or outer == outer_total:
                 elapsed = time.perf_counter() - t0
                 metrics = dict(zip(names, values), wall_seconds=elapsed)
-                log.info(
-                    "step %d/%d  loss=%.4f  mask=%.4f  spec=%.4f  (%.1f clips/s, %.3f s/step)",
-                    step, outer_total * n_inner, metrics["loss"], metrics["mask_loss"],
-                    metrics["spec_loss"], step * batch_size / elapsed, elapsed / step)
+                if rank == 0:
+                    log.info(
+                        "step %d/%d  loss=%.4f  mask=%.4f  spec=%.4f  (%.1f clips/s, "
+                        "%.3f s/step)", step, outer_total * n_inner, metrics["loss"],
+                        metrics["mask_loss"], metrics["spec_loss"], step * batch_size / elapsed,
+                        elapsed / step)
                 if on_metrics:
                     on_metrics(step, metrics)
-            if ckpt_out and (outer % save_every_outer == 0 or outer == outer_total):
+            if ckpt_out and rank == 0 and (outer % save_every_outer == 0
+                                           or outer == outer_total):
                 _save_checkpoint(ckpt_out, state, step0 + step, fatal=outer == outer_total)
     finally:
         if watchdog is not None:
             watchdog.stop()
     return metrics
+
+
+def _on_every_rank(failed: bool, done: bool, device: torch.device) -> "tuple[bool, bool]":
+    """(failed on some rank, done on every rank), agreed in one all-reduce."""
+    import torch.distributed as dist
+
+    t = torch.tensor([0 if failed else 2 if done else 1], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t) == 0, int(t) == 2
 
 
 class _StallWatchdog:

@@ -19,6 +19,13 @@ needs float32 wraps it in ``ops.mel.fp32_matmul()``.  With
 ``compute_dtype=torch.bfloat16`` the forward runs under ``torch.autocast``:
 parameters, gradients and optimizer state stay float32, BatchNorm's
 statistics and normalization run in float32, and the loss is float32.
+
+Mesh training (``make_sharded_train_step``) runs one process per mesh entry
+on ``torch.distributed`` (``parallel/grid.py``): the batch rows split over
+``data``, the time axis over ``seq``, and the step's loss, gradients,
+parameters, BatchNorm statistics and AdamW state are the unsharded step's
+on the global batch.  The dropout masks are drawn for the global batch on
+every rank and sliced (``models.unet.RowDraws``).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import load_unfolded
-from ..models.unet import DROPOUT_P, SpecUNet2D
+from ..models.unet import DROPOUT_P, RowDraws, SpecUNet2D
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -153,3 +160,92 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# mesh training
+
+def batch_partition_specs(mesh, shard_time: bool = True) -> Dict[str, tuple]:
+    """The mesh axis each training-batch dimension splits over (None:
+    whole), in the port's layout: rows over ``data``, the time axis (last)
+    over ``seq`` when ``shard_time`` and the mesh has that axis; the mask
+    keeps whole rows.  The one source of the batch layout for both sharded
+    trainers (``make_sharded_train_step``, and
+    ``device_data.make_sharded_fused_train_step``)."""
+    seq = "seq" if (shard_time and "seq" in mesh.axis_names) else None
+    return {"mel": ("data", None, seq), "mask": ("data", None),
+            "spec": ("data", None, None, seq)}
+
+
+def _sharded_loss(model: SpecUNet2D, batch: Dict[str, torch.Tensor], grid,
+                  shard_time: bool, boundary_weight: float, generator
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """This rank's share of the global loss: the losses' sums over its
+    block divided by the global count and by the number of ranks that
+    hold the same block, so that the shares sum to ``loss_fn`` on the
+    global batch."""
+    spec_out, mask_logits = model(batch["mel"], generator)
+    if shard_time:
+        mask_logits = grid.gather_seq(mask_logits)  # whole rows, as the mask
+    bce = F.binary_cross_entropy_with_logits(mask_logits, batch["mask"], reduction="none")
+    if boundary_weight > 0.0:
+        bce = bce * boundary_weights(batch["mask"], boundary_weight)
+    mask_loss = bce.sum() / (bce.numel() * grid.world_size)
+    spec_loss = torch.sum((spec_out - batch["spec"]) ** 2) / (spec_out.numel() * grid.world_size)
+    loss = mask_loss + spec_loss
+    return loss, {"loss": loss, "mask_loss": mask_loss, "spec_loss": spec_loss}
+
+
+def sharded_step(state: TrainState, batch: Dict[str, torch.Tensor], grid,
+                 shard_time: bool, boundary_weight: float = 0.0) -> Dict[str, torch.Tensor]:
+    """One optimizer step on this rank's block of the global batch (the
+    model bound by ``parallel.grid.shard_model``); returns this rank's
+    shares of the metrics."""
+    model, dev = state.model, state.device
+    model.train()
+    rows = batch["mel"].shape[0]
+    gen = RowDraws(dropout_generator(state.seed, state.step, dev), rows * grid.data, grid.d * rows)
+    with autocast(dev, state.compute_dtype):
+        loss, metrics = _sharded_loss(model, batch, grid, shard_time, boundary_weight, gen)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    grid.all_reduce_grads(model.parameters())
+    state.optimizer.step()
+    state.step += 1
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def global_metrics(shares: Dict[str, torch.Tensor], grid) -> Dict[str, torch.Tensor]:
+    """The ranks' metric shares summed over every rank, in one all-reduce."""
+    names = sorted(shares)
+    total = grid.sum_(torch.stack([shares[k] for k in names]))
+    return dict(zip(names, total.unbind()))
+
+
+def make_sharded_train_step(state: TrainState, mesh, shard_time: bool = True,
+                            boundary_weight: float = 0.0):
+    """The train step over ``mesh`` (axes ``data`` and, optionally, ``seq``)
+    in a process group of one process per mesh entry; every rank calls
+    this once.  Returns ``(step, shard)``: ``shard(batch)`` is this rank's
+    block of a global batch (``batch_partition_specs``; ``axes=("seq",)``
+    cuts only the time axis of a batch of this rank's rows), and
+    ``step(state, block)`` takes one optimizer step and returns the global
+    metrics."""
+    from ..parallel.grid import ProcessGrid, shard_batch, shard_model
+
+    grid = ProcessGrid(mesh)
+    if grid.device != state.device:
+        raise ValueError(f"rank {grid.rank}'s mesh device is {grid.device}, "
+                         f"the train state lives on {state.device}")
+    shard_time = shard_time and mesh.shape.get("seq", 1) > 1  # a 1-wide axis splits nothing
+    shard_model(state.model, grid, shard_time)
+    specs = batch_partition_specs(mesh, shard_time)
+
+    def step(state: TrainState, block: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return global_metrics(sharded_step(state, block, grid, shard_time, boundary_weight),
+                              grid)
+
+    def shard(batch: Dict[str, torch.Tensor], axes=("data", "seq")) -> Dict[str, torch.Tensor]:
+        return shard_batch(batch, specs, grid, axes)
+
+    return step, shard

@@ -75,11 +75,24 @@ def test_load_config_takes_the_new_flags():
                                    ["--coordinator", "localhost:1"],
                                    ["--num-processes", "2"], ["--process-id", "0"]],
                          ids=lambda f: f[0])
-def test_multi_gpu_flags_raise_naming_multi_gpu(tmp_path, flags):
-    """Each of the five flags raises on its own, naming itself."""
-    with pytest.raises(NotImplementedError, match=f"{flags[0]}.*multi-GPU"):
-        cli.main(["detect", "--files", str(tmp_path / "x.wav"), "--device", "cpu",
-                  "--random-init", *flags])
+def test_multi_gpu_flags_raise_naming_multi_gpu(tmp_path, flags, capsys):
+    """Each of the five flags alone now runs, as in the JAX CLI: ``--mesh``
+    on a CPU detector shards over a one-entry CPU mesh, ``--distributed``
+    with no cluster is a single process (the main store), and the other
+    three apply only with ``--distributed``; each CSV equals a plain
+    run's."""
+    rng = np.random.default_rng(2)
+    wav = str(tmp_path / "x.wav")
+    jwavio.write(wav, rng.uniform(-0.4, 0.4, 5 * 22050).astype(np.float32), 22050,
+                 subtype="PCM_16")
+    base = ["detect", "--files", wav, "--device", "cpu", "--random-init"]
+    assert cli.main([*base, "--out", str(tmp_path / "plain.csv")]) == 0
+    assert cli.main([*base, "--out", str(tmp_path / "flag.csv"), *flags]) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.rindex("\n{") + 1:])
+    assert report["detections_csv"] == str(tmp_path / "flag.csv")
+    assert report["files_done"] == 1
+    assert (tmp_path / "plain.csv").read_bytes() == (tmp_path / "flag.csv").read_bytes()
 
 
 def test_verbose_sets_debug_level(tmp_path):

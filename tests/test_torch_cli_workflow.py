@@ -155,10 +155,21 @@ def test_segment_and_grade_loop(workspace, capsys, monkeypatch):
         "total": 2, "reviewed": 2, "erased": 1, "kept": 1}
 
 
-def test_merge_detections_is_not_ported(workspace):
-    ws, _paths, _conf = workspace
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        cli.main(["--project-dir", str(ws / "p"), "project", "merge-detections"])
+def test_merge_detections_is_not_ported(workspace, capsys):
+    """`project merge-detections` now runs: with no partition stores it
+    merges nothing, prints the JAX merge's JSON, and leaves an empty main
+    store; without a project it exits as the JAX CLI does."""
+    ws, _paths, conf = workspace
+    pdir = str(ws / "merge")
+    with pytest.raises(SystemExit, match="no projects exist"):
+        cli.main(["--project-dir", pdir, "project", "merge-detections"])
+    assert cli.main(["--project-dir", pdir, "project", "new", "M"]) == 0
+    capsys.readouterr()
+    assert cli.main(["--project-dir", pdir, "project", "merge-detections", "M"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {k: out[k] for k in ("partitions", "files", "rows")} == {
+        "partitions": 0, "files": 0, "rows": 0}
+    assert out["store"].endswith("M_detections.csv") and os.path.isfile(out["store"])
 
 
 def test_detect_without_a_project_exits(workspace):

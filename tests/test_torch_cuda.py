@@ -522,3 +522,82 @@ def test_fit_from_recordings_on_the_card(tmp_path):
     assert det.epoch == 3
     res = det.detect_waveform(np.zeros(22050 * 4, np.float32))
     assert res.num_windows > 0 and np.isfinite(res.avg_values).all()
+
+
+# ---------------------------------------------------------------------------
+# the kernels launch on their tensors' device
+
+def _on_the_last_card_from_a_cuda0_thread(fn):
+    """``fn(dev)`` on a thread whose current device is cuda:0, for the last
+    visible card ``dev`` (cuda:0 itself with one card); returns its result."""
+    import threading
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    out = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        try:
+            out["value"] = fn(dev)
+        except BaseException as e:  # noqa: BLE001 — re-raised on the test's thread
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(300)
+    assert not t.is_alive()
+    if "error" in out:
+        raise out["error"]
+    return dev, out["value"]
+
+
+@pytest.mark.parametrize("mode", ["highest", "high", "default"])
+def test_frame_mel_kernel_on_the_last_card(mode):
+    """K1 on the last card from a thread whose current device is cuda:0:
+    the kernel runs on its tensors' card (the output lies there and equals
+    the plain version on that card), whatever the thread's device."""
+    _need_card()
+
+    def run(dev):
+        buf, starts = (t.to(dev) for t in _buf_and_starts())
+        got = fm.log_mel_windows_fused(buf, starts, mode, torch.float32)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        return got, fm.log_mel_windows_fused_ref(buf, starts, mode, torch.float32)
+
+    dev, (got, ref) = _on_the_last_card_from_a_cuda0_thread(run)
+    assert got.device == dev
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
+
+
+def test_dft_mel_kernel_on_the_last_card():
+    _need_card()
+
+    def run(dev):
+        rng = np.random.default_rng(5)
+        frames = torch.from_numpy(rng.standard_normal((4, 64, 512)).astype(np.float32)).to(dev)
+        got = dm.log_mel_from_frames_dft(frames)
+        torch.cuda.synchronize(dev)
+        return got, dm.log_mel_from_frames_dft_ref(frames)
+
+    dev, (got, ref) = _on_the_last_card_from_a_cuda0_thread(run)
+    assert got.device == dev
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-4)
+
+
+def test_adpcm_kernel_on_the_last_card():
+    from softspoken_tpu_torch.ops import adpcm
+
+    _need_card()
+
+    def run(dev):
+        rng = np.random.default_rng(9)
+        n = 37 * adpcm.SPB - 3
+        pcm = (rng.standard_normal(n) * 8000).clip(-32768, 32767).astype(np.int16)
+        wire = torch.from_numpy(adpcm.encode_i16(pcm)).to(dev)
+        got = adpcm.decode_device(wire, n)
+        torch.cuda.synchronize(dev)
+        return got, adpcm.decode_device_ref(wire, n)
+
+    dev, (got, ref) = _on_the_last_card_from_a_cuda0_thread(run)
+    assert got.device == dev and torch.equal(got, ref)

@@ -145,8 +145,8 @@ def test_fit_resume_warm_starts(tmp_path, corpora):
 
 
 def test_fit_rejects_what_is_not_ported_or_valid(corpora):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        fit(*corpora, steps=1, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="torch.distributed initialized"):
+        fit(*corpora, steps=1, mesh=object(), device="cpu")  # no process group
     with pytest.raises(ValueError, match="train_dtype"):
         fit(*corpora, steps=1, train_dtype="float16", device="cpu")
     with pytest.raises(ValueError, match="empty file pool"):

@@ -39,7 +39,8 @@ def test_the_walk_takes_in_every_package_of_the_port():
             "softspoken_tpu_torch.bench", "softspoken_tpu_torch.runtime.profiling"} <= set(mods)
     assert {f"softspoken_tpu_torch.{m}" for m in (
         "train.augment", "train.data", "train.fit", "io.mp3", "io.oggvorbis",
-        "io.opus")} <= set(mods)
+        "io.opus", "parallel", "parallel.mesh", "parallel.distributed",
+        "parallel.grid")} <= set(mods)
 
 
 def test_importing_every_module_loads_no_jax():

@@ -124,8 +124,8 @@ def test_fit_synthetic_rejects_bad_options():
                       noise_extra_policy="protected", device="cpu")
     with pytest.raises(ValueError, match="train_dtype"):
         fit_synthetic(steps=1, train_dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit_synthetic(steps=1, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="mesh training needs torch.distributed"):
+        fit_synthetic(steps=1, mesh=object(), device="cpu")  # no process group
 
 
 def test_fit_synthetic_defaults_to_the_card():
@@ -150,7 +150,7 @@ def test_cli_train_synthetic_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,exc,match", [
     (["--speech-dir", "s"], SystemExit, "need --speech-dir and --noise-dir"),
-    (["--synthetic", "--mesh"], NotImplementedError, "multi-GPU"),
+    (["--mesh", "--speech-dir", "s"], SystemExit, "need --speech-dir and --noise-dir"),
     ([], SystemExit, "need --speech-dir and --noise-dir"),
 ], ids=["speech_dir", "mesh", "neither"])
 def test_cli_train_unported_options(argv, exc, match):
