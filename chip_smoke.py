@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels    # build + check the kernels only
     python3 chip_smoke.py --mesh-only  # what needs several cards, over all of them
+    python3 chip_smoke.py --tools-only # phases 1-2, then the maintainers' tools
 
 Phases:
   1. device and toolchain: the card's name and power limit, nvcc/triton,
@@ -167,7 +168,17 @@ Phases:
      at phase 5's point (B = 32, pools 128 + 128, n_inner = 10, 40 steps)
      beside one card's: steps/s, losses per outer call within 2%, the
      parameters' movement within 1.0 relative L2.
-Prints a JSON line of kernel records (K1's ``launches_eval``: its launches
+ 14. slice 15, after ``eval``: tools — ``softspoken_tpu_torch.tools`` in
+     process on the card: ``quality_grid --quick`` (8 cells, 2 files x 60 s,
+     fused, K1 "highest") at the parity point and with the music filter,
+     each F1 within 0.01 frame / 0.03 event of the JAX package's CPU grid
+     (``QUICK_REFERENCE``); ``codec_gate --codec adpcm4`` at 2 files x 30 s
+     (K3 and K1 launched); one run each of ``sweep_device`` (base, phase),
+     ``profile_chunk`` (its table names K1), ``profile_e2e`` and
+     ``bench_train`` (2 outer calls); K1-K3 launches and seconds per tool,
+     the phase's seconds.  ``--tools-only`` runs phases 1-2 and this.
+Prints a JSON line of kernel records (``launches_tools``: per tool of
+phase 14; K1's ``launches_eval``: its launches
 over phase 8; ``launches_journal``: in phase 10's journaled run;
 ``launches_bench_repeat``, ``launches_bench_device_only`` and
 ``launches_gui``: phase 11's; ``launches_fit`` and ``launches_codecs``:
@@ -2099,6 +2110,105 @@ def phase_eval(work: str, smi: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# slice 15: the maintainers' tools (softspoken_tpu_torch/tools/) on the card
+# The JAX package's own quick grid, the tools phase's reference:
+# ``JAX_PLATFORMS=cpu python scripts/quality_grid.py --quick`` on the CPU at
+# commit 25c161a (2 files x 60 s per cell; seeds 7000-7003 in the quick
+# list's order; trained checkpoint; mel_precision "highest"; its host
+# pipeline on the CPU).  (frame F1, event F1) at the parity point, then with
+# the music filter at 0.85 (``parity_postfilter``).
+QUICK_REFERENCE = {
+    "v1_clean": ((0.9775, 1.0), (0.9775, 1.0)),
+    "v1_snr0": ((0.964, 0.75), (0.964, 0.75)),
+    "v1_mulaw": ((0.9668, 0.9268), (0.9668, 0.9268)),
+    "v1_reverb08": ((0.6083, 0.4211), (0.6083, 0.4211)),
+    "v2_clean": ((0.9187, 0.8511), (0.9187, 0.8511)),
+    "v2_snr0": ((0.8914, 0.7541), (0.8914, 0.7541)),
+    "v2_mulaw": ((0.8941, 0.6857), (0.8941, 0.6857)),
+    "v2_reverb08": ((0.9077, 0.7119), (0.8847, 0.6897)),
+}
+TOOLS_TOL_FRAME, TOOLS_TOL_EVENT = 0.01, 0.03
+
+
+def phase_tools(work: str, smi: str) -> dict:
+    """The tools on the card, in process, each with its kernel launches
+    (K1-K3) and seconds: ``quality_grid --quick`` held to the JAX package's
+    CPU grid (``QUICK_REFERENCE``) at the parity point and with the music
+    filter; ``codec_gate --codec adpcm4`` at 2 files x 30 s; one run each
+    of ``sweep_device`` (base, phase), ``profile_chunk`` (its table must
+    name K1), ``profile_e2e`` and ``bench_train`` (2 outer calls).  Returns
+    the launches per tool."""
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES
+    from softspoken_tpu_torch.tools import (bench_train, codec_gate, compare_grids,
+                                            profile_chunk, profile_e2e, quality_grid,
+                                            sweep_device)
+
+    tw = os.path.join(work, "tools")
+    shutil.rmtree(tw, ignore_errors=True)
+    os.makedirs(tw)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def run(name, argv, mod):
+        before = {k: KERNEL_LAUNCHES[k] for k in KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        launches[name] = {k: KERNEL_LAUNCHES[k] - before[k] for k in KERNELS}
+        log(f"tools {name}: {time.perf_counter() - t0:.1f} s, kernel launches "
+            f"{json.dumps(launches[name])} | {smi}")
+        return out
+
+    grid = run("quality_grid", ["--quick", "--out", os.path.join(tw, "quick.json"),
+                                "--workdir", os.path.join(tw, "grid")], quality_grid)
+    ref = {tag: {"parity": {"frame_f1": p[0], "event_f1": p[1]},
+                 "parity_postfilter": {"frame_f1": f[0], "event_f1": f[1]}}
+           for tag, (p, f) in QUICK_REFERENCE.items()}
+    rows = compare_grids.hold(ref, grid["conditions"], TOOLS_TOL_FRAME, TOOLS_TOL_EVENT)
+    for r in rows:
+        got = grid["conditions"][r["condition"]][r["key"]]
+        log(f"tools quick grid {r['condition']} {r['key']}: frame F1 {got['frame_f1']} "
+            f"(JAX CPU diff {r.get('d_frame', float('nan')):+.4f}), event F1 "
+            f"{got['event_f1']} (diff {r.get('d_event', float('nan')):+.4f}); tol "
+            f"{TOOLS_TOL_FRAME}/{TOOLS_TOL_EVENT}")
+    misses = [f"{r['condition']} {r['key']}" for r in rows if not r["ok"]]
+    if set(grid["conditions"]) != set(QUICK_REFERENCE) or len(rows) != 2 * len(ref):
+        misses.append(f"quick grid cells {sorted(grid['conditions'])}")
+
+    gate = run("codec_gate", ["--codec", "adpcm4", "--files", "2", "--seconds", "30",
+                              "--out", os.path.join(tw, "codec_gate.json"),
+                              "--workdir", os.path.join(tw, "codec")], codec_gate)
+    log(f"tools codec_gate adpcm4: intervals identical {gate['interval_identical_files']}/"
+        f"{gate['total_files']}; frame F1 pcm16/adpcm4/adpcm4_dec " + ", ".join(
+            f"{tag} {row['pcm16']['frame_f1']}/{row['adpcm4']['frame_f1']}/"
+            f"{row['adpcm4_dec']['frame_f1']}" for tag, row in gate["conditions"].items()))
+    sweep = run("sweep_device", ["--variants", "base,phase", "--repeats", "3"], sweep_device)
+    prof = run("profile_chunk", ["--out", os.path.join(tw, "profile_chunk.md"),
+                                 "--trace-dir", os.path.join(tw, "trace")], profile_chunk)
+    k1_ms = sum(ms for n, (ms, _c) in prof["rows"].items() if KERNEL_SYMBOLS["frame_mel"] in n)
+    log(f"tools profile_chunk: {prof['rate']:.2f} audio-s/wall-s, device ms "
+        f"{prof['device_ms']:.3f} over 4 chunk programs, K1 {k1_ms:.3f} ms")
+    e2e = run("profile_e2e", ["--repeats", "1"], profile_e2e)
+    trained = run("bench_train", ["--outer", "2"], bench_train)
+    seconds = time.perf_counter() - t_phase
+    log(f"tools phase: {seconds:.1f} s (sweep {json.dumps([round(r['audio_s_per_s'], 2) for r in sweep])}"
+        f" audio-s/wall-s, profile_e2e {e2e[0]['rate']:.2f}, bench_train "
+        f"{trained['clips_per_s']} clips/s) | {smi}")
+    if not launches["quality_grid"]["frame_mel"]:
+        misses.append("quality_grid launched no frame_mel")
+    if not launches["codec_gate"]["adpcm_decode"] or not launches["codec_gate"]["frame_mel"]:
+        misses.append("codec_gate adpcm4 launched no adpcm_decode or no frame_mel")
+    if not k1_ms or not all(r["audio_s_per_s"] > 0 for r in sweep) \
+            or not np.isfinite(trained["loss"]):
+        misses.append("a profiling tool measured nothing")
+    shutil.rmtree(tw)
+    if misses:
+        raise AssertionError("tools phase: " + "; ".join(misses))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the chunk journal, file concurrency, doctor
 def _count_programs(engine, kill_after=None):
     """Wraps ``engine._program``: returns the call list; raises after
@@ -3518,6 +3628,8 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true", help="phases 1-2 only")
     ap.add_argument("--mesh-only", action="store_true",
                     help="only what needs several cards (slice 14), over every visible card")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="phases 1-2, then the tools phase (slice 15) only")
     ap.add_argument("--first-detect", nargs=2, metavar=("MODE", "WAV"),
                     help="one case of the first-detect measurement (a subprocess of "
                          "the full run): MODE inline or runner")
@@ -3546,7 +3658,11 @@ def main() -> int:
         rec.update(tc[rec["name"]])
         if rec["tensor_cores"] and not rec["tensor_core_instructions"]:
             raise AssertionError(f"{rec['name']} claims the tensor cores but its SASS shows none")
-    if not args.kernels:
+    if args.tools_only:
+        tool_launches = phase_tools(work, smi)
+        for rec in (k1, k2, k3):
+            rec["launches_tools"] = {t: n[rec["name"]] for t, n in tool_launches.items()}
+    elif not args.kernels:
         sr, seconds = 32000, 1800.0
         wav = os.path.join(work, "field_30min_32k.wav")
         wav60 = os.path.join(work, "field_60s_32k.wav")
@@ -3572,6 +3688,9 @@ def main() -> int:
         phase_wires(work, wav, peaks, smi, k3)
         phase_workflow(work, wav, smi)
         k1["launches_eval"] = phase_eval(work, smi)
+        tool_launches = phase_tools(work, smi)
+        for rec in (k1, k2, k3):
+            rec["launches_tools"] = {t: n[rec["name"]] for t, n in tool_launches.items()}
         k1["launches_journal"] = phase_journal(work, wav, smi)
         phase_concurrency(work, smi)
         phase_doctor()

@@ -244,31 +244,38 @@ class FusedStreamingEngine:
         return torch.from_numpy(table)
 
     # ------------------------------------------------------------------
-    def device_only_rate(self, repeats: int = 8) -> float:
-        """Audio-seconds per wall-second of the chunk program alone: one full
-        synthetic chunk (zero audio, every window valid) resident on the
-        device, the carry threaded through so the chunks serialize."""
+    def synthetic_chunk_args(self) -> tuple:
+        """``_program``'s arguments up to the carry for one full synthetic
+        chunk (zero audio, every window valid), resident on the device: the
+        one layout ``device_only_rate`` and ``tools.profile_chunk`` run."""
         cfg = self.cfg
-        step = cfg.engine.step_seconds
         starts = np.minimum(np.arange(self.chunk_w, dtype=np.int64) * cfg.samples_per_step,
                             self.buf_len - cfg.samples_per_window).astype(np.int32)
-        place = self._placement(R.window_bin_offset(np.arange(self.chunk_w), step),
-                                self.chunk_w)
+        place = self._placement(
+            R.window_bin_offset(np.arange(self.chunk_w), cfg.engine.step_seconds),
+            self.chunk_w)
         if isinstance(place, torch.Tensor):
             place = place.to(self.device)
         native = torch.zeros(self._wire_len, dtype=self._wire_dtype, device=self.device)
         st = torch.from_numpy(starts.reshape(self.nb, self.B)).to(self.device)
         valid = torch.ones(self.chunk_w, dtype=torch.float32, device=self.device)
+        return native, 0, 0, st, place, valid
+
+    def device_only_rate(self, repeats: int = 8) -> float:
+        """Audio-seconds per wall-second of the chunk program alone on
+        ``synthetic_chunk_args``, the carry threaded through so the chunks
+        serialize."""
+        args = self.synthetic_chunk_args()
         cs = torch.zeros(CARRY, device=self.device)
         cc = torch.zeros(CARRY, device=self.device)
-        self._program(native, 0, 0, st, place, valid, cs, cc)
+        self._program(*args, cs, cc)
         self._sync()
         t0 = time.perf_counter()
         for _ in range(repeats):
-            avg, _, cs, cc = self._program(native, 0, 0, st, place, valid, cs, cc)
+            _, _, cs, cc = self._program(*args, cs, cc)
         self._sync()
         wall = time.perf_counter() - t0
-        return repeats * self.chunk_w * step / wall
+        return repeats * self.chunk_w * self.cfg.engine.step_seconds / wall
 
     def _sync(self) -> None:
         devices = {self.device}

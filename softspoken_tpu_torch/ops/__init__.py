@@ -22,3 +22,22 @@ def count_launch(name: str) -> None:
 def reset_launch_counts() -> None:
     with _launch_lock:
         KERNEL_LAUNCHES.clear()
+
+
+# the JAX package's public frontend functions (after the counters: the
+# kernel wrappers import ``count_launch`` from here)
+from .mel import (  # noqa: E402
+    frame_index_table,
+    gather_frames,
+    log_mel_clips,
+    log_mel_from_frames,
+    log_mel_single,
+    log_mel_windows,
+    mel_filterbank,
+)
+
+__all__ = [
+    "KERNEL_LAUNCHES", "count_launch", "reset_launch_counts",
+    "frame_index_table", "gather_frames", "log_mel_clips", "log_mel_from_frames",
+    "log_mel_single", "log_mel_windows", "mel_filterbank",
+]

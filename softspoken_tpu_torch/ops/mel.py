@@ -106,6 +106,25 @@ def truncated_tables(n_bins: int) -> "tuple[np.ndarray, np.ndarray]":
     return np.ascontiguousarray(w), np.ascontiguousarray(fb_full[:n_bins])
 
 
+@lru_cache(maxsize=4)
+def frame_index_table(frames: int = FRAMES) -> np.ndarray:
+    """(frames, WIN_LENGTH) int32 sample offsets of each frame relative to
+    its window's start, the layout ``frames_from_window`` slices.
+
+    Frame k ≥ 1 covers window samples [(k-1)·256, (k+1)·256); frame 0 is
+    the one frame in torch.stft's reflect pad, where padded position p maps
+    to window sample |p|.  Frames ≥ 256 touch the right pad; the model
+    trims them (pytorch_neural_nets.py:150), so none is computed.
+    """
+    idx = np.empty((frames, WIN_LENGTH), dtype=np.int32)
+    base = np.arange(WIN_LENGTH, dtype=np.int32)
+    for k in range(1, frames):
+        idx[k] = (k - 1) * HOP_LENGTH + base
+    pos = np.arange(-HOP_LENGTH, HOP_LENGTH + (WIN_LENGTH - 2 * HOP_LENGTH), dtype=np.int32)
+    idx[0] = np.abs(pos)
+    return idx
+
+
 def frames_from_window(w: torch.Tensor) -> torch.Tensor:
     """(..., ≥66150) windows → (..., 256, 512) STFT frames.
 
@@ -239,6 +258,17 @@ def log_mel_windows(waveform: torch.Tensor, starts: torch.Tensor,
                     mode: str = "highest") -> torch.Tensor:
     """Gather + DFT + mel + compression: (B, n_mels, 256) float32."""
     return log_mel_from_frames(gather_frames(waveform.to(torch.float32), starts), mode)
+
+
+def log_mel_single(waveform: np.ndarray, mode: str = "highest", device=None) -> np.ndarray:
+    """One 66150-sample window → (n_mels, 256) float32 numpy, through the
+    plain chain on ``device`` (default: the CUDA card, as ``Detector``;
+    ``device="cpu"`` on the host)."""
+    from ..engine.detector import resolve_device
+
+    wf = torch.as_tensor(np.asarray(waveform, np.float32), device=resolve_device(device))
+    out = log_mel_windows(wf, torch.zeros(1, dtype=torch.int32, device=wf.device), mode)
+    return out[0].cpu().numpy()
 
 
 def train_mel_mode(device: torch.device) -> str:

@@ -13,7 +13,8 @@ threshold (as ``postfilter_parity_metrics`` applies it).
     JAX_PLATFORMS=cpu python tests/jax_eval_reference.py [v1_clean ...]
 
 prints one JSON line per condition; ``chip_smoke.py`` carries the F1
-values as its gate's reference.
+values as its gate's reference.  Any other tag of the grid (``v2_snr5``,
+``v1_fading``, ...) is computed the same way, with its own seed.
 """
 
 from __future__ import annotations
@@ -37,6 +38,18 @@ CONDITIONS = [
 ]
 N_FILES, SECONDS = 8, 120.0
 THRESHOLD, BREAK, MIN_LEN, IOU = 0.1, 0.5, 0.1, 0.5
+
+
+def grid_condition(tag):
+    """(tag, generator, seed, degradations, snr_db) of any grid tag, from
+    ``scripts/quality_grid.py``'s list (its seed is 7000 + the index)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from quality_grid import CONDITIONS as GRID
+
+    gen, name = tag.split("_", 1)
+    ci = [c for c, _kw in GRID].index(name)
+    kw = GRID[ci][1]
+    return tag, gen, 7000 + ci, kw.get("degradations"), kw.get("snr_db")
 
 
 def score(per_file, pad, sr, music_threshold=None):
@@ -88,13 +101,13 @@ def main(tags) -> None:
     assert det.epoch >= 0, "the trained checkpoint did not load"
     sr, pad = cfg.dsp.sample_rate, cfg.engine.pad_seconds
     base = tempfile.mkdtemp(prefix="jax_eval_ref_")
-    for tag, gen, seed, deg in CONDITIONS:
-        if tags and tag not in tags:
-            continue
+    runs = [(*c, None) for c in CONDITIONS if not tags or c[0] in tags]
+    runs += [grid_condition(t) for t in tags if t not in {c[0] for c in CONDITIONS}]
+    for tag, gen, seed, deg, snr_db in runs:
         t0 = time.time()
         labels = E.make_eval_set(os.path.join(base, tag), n_files=N_FILES,
                                  seconds=SECONDS, seed=seed, generator=gen,
-                                 degradations=deg)
+                                 degradations=deg, snr_db=snr_db)
         synth_s = time.time() - t0
         t0 = time.time()
         per_file = []

@@ -112,3 +112,39 @@ def test_wrapper_rejects_bad_arguments(buf_and_starts):
         fm.log_mel_windows_fused(buf, starts, out_dtype=torch.float16)
     with pytest.raises(ValueError):  # a window past the buffer's end
         fm.log_mel_windows_fused(buf, torch.tensor([buf.shape[0] - 66149], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("frames", [256, 259, 8])
+def test_frame_index_table_equals_jax(frames):
+    got = tmel.frame_index_table(frames)
+    want = jmel.frame_index_table(frames)
+    assert got.dtype == np.int32 and got.shape == (frames, 512)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_frame_index_table_is_the_layout_frames_from_window_slices(buf_and_starts):
+    buf, _ = buf_and_starts
+    w = buf[:66150]
+    frames = tmel.frames_from_window(torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(frames, w[tmel.frame_index_table()])
+
+
+def test_log_mel_single_matches_jax_highest(buf_and_starts):
+    buf, _ = buf_and_starts
+    w = buf[174: 174 + 66150]
+    got = tmel.log_mel_single(w, device="cpu")
+    want = jmel.log_mel_single(w, precision=jax.lax.Precision.HIGHEST)
+    assert isinstance(got, np.ndarray) and got.shape == (128, 256) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_ops_exports_the_jax_frontend_functions():
+    import softspoken_tpu.ops as jops
+    import softspoken_tpu_torch.ops as tops
+
+    assert set(jops.__all__) <= set(tops.__all__)
+    assert tops.frame_index_table is tmel.frame_index_table
+    assert tops.log_mel_single is tmel.log_mel_single
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tops.log_mel_single(np.zeros(66150, np.float32))
