@@ -3,7 +3,7 @@
     python3 chip_smoke.py              # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels    # build + check the kernels only
     python3 chip_smoke.py --mesh-only  # what needs several cards, over all of them
-    python3 chip_smoke.py --tools-only # phases 1-2, then the maintainers' tools
+    python3 chip_smoke.py --tools-only # phases 1-2, then the maintainers' tools (14, 15)
 
 Phases:
   1. device and toolchain: the card's name and power limit, nvcc/triton,
@@ -176,9 +176,19 @@ Phases:
      (K3 and K1 launched); one run each of ``sweep_device`` (base, phase),
      ``profile_chunk`` (its table names K1), ``profile_e2e`` and
      ``bench_train`` (2 outer calls); K1-K3 launches and seconds per tool,
-     the phase's seconds.  ``--tools-only`` runs phases 1-2 and this.
+     the phase's seconds.  ``--tools-only`` runs phases 1-2, this and 15.
+ 15. slice 16, after ``tools``: finetune — ``tools.ft_boundary --quick`` on
+     the card, its stages as subprocesses (train 4 steps at B = 2 from the
+     committed .pth, the quick grid, the verdict JSON): stage seconds and
+     the grid stage's K1 launches (> 0), read from the line the grid prints
+     at exit; with pygame's clips on the machine, ``tools.real_audio_check
+     --quick`` in process (K1 counted) held to the same run on the CPU (a
+     subprocess running meanwhile): beds and mixes byte-equal,
+     false_fraction per class within 0.01, F1 within 0.01 / 0.03; then
+     ``tools.ft_music --quick`` (K1 in its grid and real-audio stages).
+     Without the clips, one line names the runs not made.
 Prints a JSON line of kernel records (``launches_tools``: per tool of
-phase 14; K1's ``launches_eval``: its launches
+phase 14; ``launches_finetune``: per tool and stage of phase 15; K1's ``launches_eval``: its launches
 over phase 8; ``launches_journal``: in phase 10's journaled run;
 ``launches_bench_repeat``, ``launches_bench_device_only`` and
 ``launches_gui``: phase 11's; ``launches_fit`` and ``launches_codecs``:
@@ -2209,6 +2219,177 @@ def phase_tools(work: str, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 16: the real-audio probe and the fine-tune drivers
+RA_TOL_FRACTION = 0.01  # real_audio_check card vs CPU: false_fraction per class
+
+
+def _ft_driver(name: str, wd: str) -> "tuple[float, str]":
+    """``python -m softspoken_tpu_torch.tools.<name> --quick`` on the card, a
+    subprocess whose stages are subprocesses too: (seconds, its stdout);
+    fails on a nonzero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"softspoken_tpu_torch.tools.{name}", "--quick",
+                        "--workdir", wd], cwd=HERE, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        tails = []
+        for f in sorted(os.listdir(wd)):
+            if f.endswith(".log"):
+                with open(os.path.join(wd, f)) as fh:
+                    tails.append(f"--- {f}\n" + "".join(fh.readlines()[-20:]))
+        raise AssertionError(f"{name} --quick exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}\n" + "\n".join(tails))
+    return seconds, r.stdout
+
+
+def _stage_seconds(out: str) -> list:
+    """Each stage's wall seconds, from the "done in" lines ``ftlib.run``
+    prints (a skipped stage prints none)."""
+    return [float(ln.split("done in ")[1].split(" s")[0]) for ln in out.splitlines()
+            if ln.startswith("  done in ")]
+
+
+def _stage_launches(wd: str, log_name: str) -> dict:
+    """The kernel launches that a stage subprocess printed at its exit."""
+    from softspoken_tpu_torch.tools import read_launches
+
+    with open(os.path.join(wd, log_name)) as f:
+        got = read_launches(f.read())
+    return {k: got.get(k, 0) for k in KERNELS}
+
+
+def _wav_files(root: str) -> dict:
+    return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
+            for d, _dirs, files in os.walk(root) for f in files if f.endswith(".wav")}
+
+
+def phase_finetune(work: str, smi: str) -> dict:
+    """The fine-tune drivers and the real-audio probe on the card.
+    ``tools.ft_boundary --quick`` end to end (train 4 steps from the
+    committed .pth, the quick grid, the verdict), each stage a subprocess:
+    the grid stage's K1 launches, read from the line it prints at exit, must
+    be > 0.  With pygame's clips present: ``tools.real_audio_check --quick``
+    in process (K1 counted), held to the same run on the CPU (a subprocess
+    started first, running meanwhile): the beds' and mixes' WAV bytes equal,
+    false_fraction per class within 0.01, F1 within 0.01 frame / 0.03 event;
+    then ``tools.ft_music --quick`` (its grid and real-audio stages launch
+    K1).  Without the clips, one line says what was not run.  Returns the
+    launches per tool and stage."""
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES
+    from softspoken_tpu_torch.tools import real_audio_check as RA
+
+    fw = os.path.join(work, "finetune")
+    shutil.rmtree(fw, ignore_errors=True)
+    os.makedirs(fw)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    misses: list = []
+    missing = RA.missing_clips(RA.pygame_data_dir())
+    cpu_json, cpu_wd = os.path.join(fw, "real_cpu.json"), os.path.join(fw, "real_cpu")
+    cpu_proc = None
+    if not missing:
+        cpu_proc = subprocess.Popen(
+            [sys.executable, "-m", "softspoken_tpu_torch.tools.real_audio_check", "--quick",
+             "--device", "cpu", "--out", cpu_json, "--workdir", cpu_wd],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        wd = os.path.join(fw, "ft_boundary")
+        seconds, out = _ft_driver("ft_boundary", wd)
+        launches["ft_boundary grid"] = _stage_launches(wd, "grid.log")
+        with open(os.path.join(wd, "VERDICT_ft_boundary.json")) as f:
+            verdict = json.load(f)
+        stages = _stage_seconds(out)
+        log(f"finetune ft_boundary --quick: {seconds:.1f} s (stages train, grid: "
+            f"{stages} s), grid K1 launches {launches['ft_boundary grid']['frame_mel']}, "
+            f"verdict adopt={verdict['adopt']} (4 steps), v2 worst event F1 "
+            f"{verdict['v2_worst_event_f1']} | {smi}")
+        if not launches["ft_boundary grid"]["frame_mel"]:
+            misses.append("ft_boundary's grid stage launched no frame_mel")
+        if len(stages) != 2 or not os.path.exists(os.path.join(wd, "candidate.pth")):
+            misses.append(f"ft_boundary stages {stages}")
+
+        if missing:
+            log(f"finetune: pygame's clips are absent ({', '.join(missing)}): "
+                "real_audio_check --quick (card and CPU) and ft_music --quick not run")
+        else:
+            card_json, card_wd = os.path.join(fw, "real_card.json"), os.path.join(fw, "real_card")
+            before = {k: KERNEL_LAUNCHES[k] for k in KERNELS}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = RA.main(["--quick", "--out", card_json, "--workdir", card_wd])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches["real_audio_check"] = {k: KERNEL_LAUNCHES[k] - before[k] for k in KERNELS}
+            t0 = time.perf_counter()
+            cpu_out, _ = cpu_proc.communicate(timeout=900)
+            wait_s = time.perf_counter() - t0
+            if cpu_proc.returncode != 0:
+                raise AssertionError(f"real_audio_check --device cpu exited "
+                                     f"{cpu_proc.returncode}:\n{cpu_out[-3000:]}")
+            with open(cpu_json) as f:
+                cpu = json.load(f)
+            wav_card, wav_cpu = _wav_files(card_wd), _wav_files(cpu_wd)
+            same = sorted(k for k in wav_card if k in wav_cpu and open(wav_card[k], "rb").read()
+                          == open(wav_cpu[k], "rb").read())
+            if not wav_card or same != sorted(wav_card) or set(wav_card) != set(wav_cpu):
+                misses.append(f"real_audio_check WAVs card != CPU: {sorted(set(wav_card) ^ set(same))}")
+            for cls, got in card["false_positives_on_real_audio"].items():
+                want = cpu["false_positives_on_real_audio"][cls]
+                d = got["false_fraction"] - want["false_fraction"]
+                log(f"finetune real_audio_check {cls}: false_fraction card {got['false_fraction']} "
+                    f"CPU {want['false_fraction']} ({d:+.4f}, tol {RA_TOL_FRACTION}), events "
+                    f"{got['false_events']}/{want['false_events']}, grid max {got['grid_max']}/"
+                    f"{want['grid_max']}")
+                if abs(d) > RA_TOL_FRACTION:
+                    misses.append(f"real_audio_check {cls} false_fraction {d:+.4f}")
+            for snr, row in card["recall_over_real_noise_beds"].items():
+                got, want = row["parity"], cpu["recall_over_real_noise_beds"][snr]["parity"]
+                df, de = got["frame_f1"] - want["frame_f1"], got["event_f1"] - want["event_f1"]
+                log(f"finetune real_audio_check {snr}: frame F1 card {got['frame_f1']} CPU "
+                    f"{want['frame_f1']} ({df:+.4f}), event F1 {got['event_f1']}/"
+                    f"{want['event_f1']} ({de:+.4f}); tol {TOOLS_TOL_FRAME}/{TOOLS_TOL_EVENT}")
+                if abs(df) > TOOLS_TOL_FRAME or abs(de) > TOOLS_TOL_EVENT:
+                    misses.append(f"real_audio_check {snr} F1 {df:+.4f}/{de:+.4f}")
+            log(f"finetune real_audio_check --quick: card {seconds:.1f} s ({card['backend']}), "
+                f"CPU {cpu['wall_seconds']} s of probes (waited {wait_s:.1f} s more), "
+                f"{len(same)} WAVs byte-equal, K1 launches "
+                f"{launches['real_audio_check']['frame_mel']} | {smi}")
+            if not launches["real_audio_check"]["frame_mel"]:
+                misses.append("real_audio_check launched no frame_mel")
+
+            wd = os.path.join(fw, "ft_music")
+            seconds, out = _ft_driver("ft_music", wd)
+            stages = _stage_seconds(out)
+            launches["ft_music grid"] = _stage_launches(wd, "grid.log")
+            launches["ft_music real"] = _stage_launches(wd, "real.log")
+            with open(os.path.join(wd, "VERDICT_ft_music.json")) as f:
+                verdict = json.load(f)
+            log(f"finetune ft_music --quick: {seconds:.1f} s (stages train, grid, real: "
+                f"{stages} s), K1 launches grid {launches['ft_music grid']['frame_mel']}, real "
+                f"{launches['ft_music real']['frame_mel']}, verdict adopt={verdict['adopt']} "
+                f"(4 steps), music false_fraction {verdict['music_false_fraction']} | {smi}")
+            if not (launches["ft_music grid"]["frame_mel"]
+                    and launches["ft_music real"]["frame_mel"]) or len(stages) != 3:
+                misses.append(f"ft_music stages {stages}, launches "
+                              f"{launches['ft_music grid']} {launches['ft_music real']}")
+    finally:
+        if cpu_proc is not None and cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.communicate()
+    log(f"finetune phase: {time.perf_counter() - t_phase:.1f} s | {smi}")
+    if misses:
+        for d, _dirs, files in os.walk(fw):
+            for f in sorted(files):
+                if f.endswith(".log"):
+                    with open(os.path.join(d, f)) as fh:
+                        log(f"--- {os.path.relpath(os.path.join(d, f), fw)} (tail)\n"
+                            + "".join(fh.readlines()[-15:]))
+        raise AssertionError("finetune phase: " + "; ".join(misses))
+    shutil.rmtree(fw)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the chunk journal, file concurrency, doctor
 def _count_programs(engine, kill_after=None):
     """Wraps ``engine._program``: returns the call list; raises after
@@ -3629,7 +3810,7 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="only what needs several cards (slice 14), over every visible card")
     ap.add_argument("--tools-only", action="store_true",
-                    help="phases 1-2, then the tools phase (slice 15) only")
+                    help="phases 1-2, then the tools and finetune phases (slices 15-16) only")
     ap.add_argument("--first-detect", nargs=2, metavar=("MODE", "WAV"),
                     help="one case of the first-detect measurement (a subprocess of "
                          "the full run): MODE inline or runner")
@@ -3660,8 +3841,10 @@ def main() -> int:
             raise AssertionError(f"{rec['name']} claims the tensor cores but its SASS shows none")
     if args.tools_only:
         tool_launches = phase_tools(work, smi)
+        ft_launches = phase_finetune(work, smi)
         for rec in (k1, k2, k3):
             rec["launches_tools"] = {t: n[rec["name"]] for t, n in tool_launches.items()}
+            rec["launches_finetune"] = {t: n[rec["name"]] for t, n in ft_launches.items()}
     elif not args.kernels:
         sr, seconds = 32000, 1800.0
         wav = os.path.join(work, "field_30min_32k.wav")
@@ -3689,8 +3872,10 @@ def main() -> int:
         phase_workflow(work, wav, smi)
         k1["launches_eval"] = phase_eval(work, smi)
         tool_launches = phase_tools(work, smi)
+        ft_launches = phase_finetune(work, smi)
         for rec in (k1, k2, k3):
             rec["launches_tools"] = {t: n[rec["name"]] for t, n in tool_launches.items()}
+            rec["launches_finetune"] = {t: n[rec["name"]] for t, n in ft_launches.items()}
         k1["launches_journal"] = phase_journal(work, wav, smi)
         phase_concurrency(work, smi)
         phase_doctor()

@@ -2,9 +2,10 @@
 
 The fields, names and defaults are those of the reference application's
 settings (``root/code/backend/settings.py:1-33``) and of the JAX package's
-``Config``, so a JSON config file drives either package.  Knobs that select a
-code path this package does not implement yet are accepted and rejected at
-use with ``NotImplementedError`` naming the missing slice.
+``Config``, so a JSON config file drives either package.  Every knob is
+implemented; the one input the port refuses is an orbax checkpoint
+directory (``engine/detector.py``), which raises ``NotImplementedError``
+naming the JAX package's ``convert-ckpt`` export to ``.pth``.
 
 Reference constant map (file:line → field):
   settings.py:4-6    n_fft=512, win_length=512, hop_length=256
@@ -55,7 +56,7 @@ class EngineConfig:
     break_duration: float = 0.5       # worker.py:97
     # hysteresis exit level (engine/regions.py); None = reference behaviour
     exit_threshold: Optional[float] = None
-    # music post-filter threshold; not ported yet (must stay None)
+    # music post-filter threshold (engine/postfilter.py); None = off
     music_filter: Optional[float] = None
     # odd running-median width over the averaged grid; 0 = off
     grid_smooth: int = 0

@@ -6,8 +6,8 @@ encodings and the reference reads them incidentally through libsndfile
 (``sf.read``, voice_activity.py:37).
 
 These are the *decode* tables for stored 8-bit codes.  The upload
-compander of the lossy mu-law wire (a later slice of the port) is a
-separate continuous-formula codec for the host->device wire; it is not
+compander of the lossy mu-law wire (``ops/mulaw.py``) is a separate
+continuous-formula codec for the host->device wire; it is not
 byte-compatible with G.711 and the two must not be mixed.
 """
 

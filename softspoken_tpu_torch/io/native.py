@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``io/native.py``: the multithreaded C++
 polyphase resampler, channel downmix and PCM16 → mono float32 decode, and
 the upload wires' host loops (the decimation FIR, the mu-law table gather
 and the IMA-ADPCM block encoder), compiled with g++ on first use
-(``ops/_build.build_host``, into the checkout's
-``build/softspoken_tpu_torch/``).  These are host code, not
+(``ops/_build.build_host``, into ``ops/_build.BUILD_DIR``: the checkout's
+``build/softspoken_tpu_torch/``, or a user cache when the package is
+installed).  These are host code, not
 device kernels.  Without a compiler, or with ``SOFTSPOKEN_DISABLE_NATIVE``
 set, every wrapper returns None and the callers take their numpy/scipy
 path: the native code is a speed tier, not a dependency.

@@ -7,7 +7,8 @@ first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -I csrc -o build/softspoken_tpu_torch/<name>-<hash>.so
 
-into the checkout's ``build/`` directory (listed in .gitignore), with
+into ``BUILD_DIR`` (``build_dir``: the checkout's ``build/``, listed in
+.gitignore, or a user cache for an installed package), with
 ``-I csrc`` so that the sources can share headers.  The hash covers the
 source, every header in ``csrc/`` (any of them may be included) and the
 flags, so an edited source or header rebuilds and a stale library is never
@@ -37,7 +38,31 @@ from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "softspoken_tpu_torch")
+BUILD_ENV = "SOFTSPOKEN_TORCH_BUILD_DIR"
+
+
+def build_dir(pkg: str = _PKG) -> str:
+    """Where the libraries go: ``$SOFTSPOKEN_TORCH_BUILD_DIR`` if set; else
+    the checkout's ``build/softspoken_tpu_torch/`` when ``pkg`` lies in a
+    checkout (its parent holds ``pyproject.toml``) whose build tree can be
+    written; else ``~/.cache/softspoken_tpu_torch/``, so that an installed
+    package never writes beside itself in site-packages.  Nothing is
+    created here."""
+    env = os.environ.get(BUILD_ENV)
+    if env:
+        return env
+    root = os.path.dirname(pkg)
+    local = os.path.join(root, "build", "softspoken_tpu_torch")
+    if os.path.isfile(os.path.join(root, "pyproject.toml")):
+        probe = local
+        while not os.path.exists(probe) and probe != root:
+            probe = os.path.dirname(probe)
+        if os.access(probe, os.W_OK | os.X_OK):
+            return local
+    return os.path.join(os.path.expanduser("~"), ".cache", "softspoken_tpu_torch")
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -37,8 +37,10 @@ from ..engine import postfilter as PF
 from ..engine import regions as R
 from ..engine.fused import _i16_kind
 from ..io import load_audio_startstop
+from ..ops import KERNEL_LAUNCHES
 from ..train import evaluate as E
-from . import DEFAULT_CKPT, OUT_DIR, add_device_arg, repo_relative, resolve_out
+from . import (DEFAULT_CKPT, OUT_DIR, add_device_arg, print_launches, repo_relative,
+               resolve_out)
 
 THRESHOLDS = [0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.5]
 HYST_EXITS = [0.0, 0.02, 0.05, 0.08]
@@ -280,7 +282,7 @@ def _check_cache_dir(cache_dir, ident):
             json.dump(ident, f)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--files", type=int, default=8)
@@ -309,7 +311,12 @@ def main(argv=None):
                     help="music-filter threshold for the A/B (default: "
                          "engine/postfilter.DEFAULT_THRESHOLD)")
     add_device_arg(ap)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    launches0 = dict(KERNEL_LAUNCHES)
 
     n_files, seconds = args.files, args.seconds
     conditions = CONDITIONS
@@ -447,6 +454,7 @@ def main(argv=None):
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {args.out}", flush=True)
+    print_launches(launches0)
     return out
 
 

@@ -269,16 +269,102 @@ def _first_difference(a, b):
             f"{a.reshape(-1)[i]!r} vs {b.reshape(-1)[i]!r}")
 
 
-def _wire_mismatch_report(det, paths, grids):
+class _StageRecorder:
+    """Records, for each ``detect_file_streaming`` call of ``det`` while it
+    is on, the fused engine's stages (the decoded wire, the resampled input,
+    the mel, the logits, each chunk's grid and the file's grid) and the
+    process state at each chunk program's entry: torch's intra-op thread
+    count, the live Python threads and whether the detector had run a
+    forward before.  The arrays are small (a few seconds of audio), so the
+    recorder stays on for the first runs of the bit-equality test."""
+
+    STAGES = ("decoded", "resampled", "mel", "logits", "chunk grid", "grid")
+
+    def __init__(self, det):
+        import threading
+
+        import softspoken_tpu_torch.engine.fused as fused
+        from softspoken_tpu_torch.ops import mel as melops
+
+        self.runs, self.forwards = [], 0
+        self._mp = pytest.MonkeyPatch()
+        real_poly, real_fwd = fused.polyphase_apply, det._forward
+        real_mel, real_detect = melops.log_mel_windows, det.detect_file_streaming
+        real_program = fused.FusedStreamingEngine._program
+        rec = self
+
+        def keep(stage, t):
+            rec.runs[-1][stage].append(t.detach().cpu().numpy().copy())
+
+        def poly(x, W, **kw):
+            y = real_poly(x, W, **kw)
+            keep("decoded", x)
+            keep("resampled", y)
+            rec.runs[-1]["align"].append((x.data_ptr() % 64, W.data_ptr() % 64))
+            return y
+
+        def mel(*args, **kw):
+            y = real_mel(*args, **kw)
+            keep("mel", y)
+            return y
+
+        def fwd(*args):
+            y = real_fwd(*args)
+            rec.forwards += 1
+            keep("logits", y)
+            return y
+
+        def program(engine, *args):
+            rec.runs[-1]["state"].append({
+                "torch threads": torch.get_num_threads(),
+                "python threads": sorted(t.name for t in threading.enumerate()),
+                "first forward of the detector": rec.forwards == 0})
+            out = real_program(engine, *args)
+            keep("chunk grid", out[0])
+            return out
+
+        def detect(path, *args, **kw):
+            rec.runs.append({k: [] for k in self.STAGES + ("align", "state")})
+            res = real_detect(path, *args, **kw)
+            rec.runs[-1]["grid"] = [np.asarray(res.avg_values).copy()]
+            return res
+
+        self._mp.setattr(fused, "polyphase_apply", poly)
+        self._mp.setattr(melops, "log_mel_windows", mel)
+        self._mp.setattr(fused.FusedStreamingEngine, "_program", program)
+        self._mp.setattr(det, "_forward", fwd)
+        self._mp.setattr(det, "detect_file_streaming", detect)
+
+    def stop(self):
+        self._mp.undo()
+        return self.runs
+
+
+def _stage(run, k):
+    return np.concatenate([z.reshape(-1) for z in run[k]]) if run[k] else np.zeros(0)
+
+
+def _first_departure(a, b):
+    """The first stage (in pipeline order) at which two recorded runs
+    differ, with that difference; "none" when every stage is equal."""
+    for k in _StageRecorder.STAGES:
+        d = _first_difference(_stage(a, k), _stage(b, k))
+        if d != "equal":
+            return f"{k} ({d})"
+    return "none"
+
+
+def _wire_mismatch_report(det, paths, grids, first=None):
     """Evidence for a float32-wire/int16-wire grid mismatch, gathered in the
     process where it happened: the differing bins; a second run of each
-    wire with the engine's decoded input, resampled input and logits
-    recorded, and the first difference of each stage; the two resampling
-    matrices' alignment; the thread team; the main thread's MXCSR and the
-    intra-op threads' float mode."""
+    wire with every stage recorded, and the first difference of each stage;
+    with ``first`` (the recorded first runs), the first stage at which the
+    float32 wire's first run departs from its rerun and from the int16
+    wire, and the process state at each of the first runs' chunk programs;
+    the two resampling matrices' alignment; the thread team; the main
+    thread's MXCSR and the intra-op threads' float mode."""
     import threading
 
-    import softspoken_tpu_torch.engine.fused as fused
     from softspoken_tpu_torch.engine.fused import get_fused_engine
 
     a, b = grids
@@ -286,36 +372,29 @@ def _wire_mismatch_report(det, paths, grids):
     out = [f"{d.size} of {a.size} bins differ: "
            + ", ".join(f"{i}: {a[i]!r} vs {b[i]!r}" for i in d[:20])]
     try:
-        stages = []
-        real_poly, real_fwd = fused.polyphase_apply, det._forward
-        for path in paths:
-            rec = {"decoded": [], "resampled": [], "logits": [], "align": []}
-
-            def poly(x, W, rec=rec, **kw):
-                y = real_poly(x, W, **kw)
-                rec["decoded"].append(x.detach().cpu().numpy().copy())
-                rec["resampled"].append(y.detach().cpu().numpy().copy())
-                rec["align"].append((x.data_ptr() % 64, W.data_ptr() % 64))
-                return y
-
-            def fwd(*args, rec=rec):
-                y = real_fwd(*args)
-                rec["logits"].append(y.detach().cpu().numpy().copy())
-                return y
-
-            with pytest.MonkeyPatch.context() as mp:
-                mp.setattr(fused, "polyphase_apply", poly)
-                mp.setattr(det, "_forward", fwd)
-                rec["grid"] = det.detect_file_streaming(path).avg_values
-            stages.append(rec)
-        f32, i16 = stages
+        rec = _StageRecorder(det)
+        try:
+            for path in paths:
+                det.detect_file_streaming(path)
+        finally:
+            f32, i16 = rec.stop()
         out.append("second run: float32 wire grid vs first run "
-                   + _first_difference(f32["grid"], a) + "; int16 wire grid vs first run "
-                   + _first_difference(i16["grid"], b))
-        for k in ("decoded", "resampled", "logits"):
-            out.append(f"second run, {k} (float32 wire vs int16 wire): " + _first_difference(
-                np.concatenate([z.reshape(-1) for z in f32[k]]),
-                np.concatenate([z.reshape(-1) for z in i16[k]])))
+                   + _first_difference(f32["grid"][0], a) + "; int16 wire grid vs first run "
+                   + _first_difference(i16["grid"][0], b))
+        for k in _StageRecorder.STAGES[:-1]:
+            out.append(f"second run, {k} (float32 wire vs int16 wire): "
+                       + _first_difference(_stage(f32, k), _stage(i16, k)))
+        if first is not None:
+            f0, i0 = first
+            out.append("first run, float32 wire departs from its rerun at: "
+                       + _first_departure(f0, f32))
+            out.append("first run, float32 wire departs from the int16 wire's first run at: "
+                       + _first_departure(f0, i0))
+            out.append("first run, int16 wire departs from its rerun at: "
+                       + _first_departure(i0, i16))
+            for name, run in (("float32", f0), ("int16", i0)):
+                out.append(f"first run, {name} wire, state at each chunk program: "
+                           + "; ".join(str(s) for s in run["state"]))
         out.append(f"(input, matrix) address mod 64: float32 wire {f32['align']}, "
                    f"int16 wire {i16['align']}")
         out.append("engine matrices address mod 64: " + ", ".join(
@@ -348,9 +427,11 @@ def test_fused_detect_on_a_container_is_bit_equal_to_the_wav(tmp_path, fmt):
     eng = dict(precision="parity", device_batch=4, chunk_seconds=6.0, pipeline="fused")
     det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
                    device="cpu")
+    recorder = _StageRecorder(det)  # the first runs, stage by stage
     rc, rw = det.detect_file_streaming(p), det.detect_file_streaming(wp)
+    first = recorder.stop()
     report = ("" if np.array_equal(rc.avg_values, rw.avg_values) else
-              _wire_mismatch_report(det, (p, wp), (rc.avg_values, rw.avg_values)))
+              _wire_mismatch_report(det, (p, wp), (rc.avg_values, rw.avg_values), first))
     np.testing.assert_array_equal(rc.avg_values, rw.avg_values, err_msg=report)
     assert rc.intervals == rw.intervals
     ref = JDetector(JConfig().with_engine(**eng),
@@ -371,15 +452,27 @@ def test_the_wire_mismatch_report_gathers_its_evidence(tmp_path):
     eng = dict(precision="parity", device_batch=4, chunk_seconds=6.0, pipeline="fused")
     det = Detector(Config().with_engine(**eng), state_dict=fixture_state_dict(0),
                    device="cpu")
+    recorder = _StageRecorder(det)
     a = det.detect_file_streaming(p).avg_values
+    det.detect_file_streaming(wp)
+    first = recorder.stop()
     b = a.copy()
     b[7] = np.nextafter(b[7], np.float32(1))
-    report = _wire_mismatch_report(det, (p, wp), (a, b))
+    report = _wire_mismatch_report(det, (p, wp), (a, b), first)
     assert report.startswith("1 of ")
     assert "float32 wire grid vs first run equal" in report
     assert "int16 wire grid vs first run 1 of" in report
-    for k in ("decoded", "resampled", "logits"):
+    for k in ("decoded", "resampled", "mel", "logits", "chunk grid"):
         assert f"second run, {k} (float32 wire vs int16 wire): equal" in report
+    for line in ("float32 wire departs from its rerun at: none",
+                 "float32 wire departs from the int16 wire's first run at: none",
+                 "int16 wire departs from its rerun at: none"):
+        assert "first run, " + line in report
+    assert "'first forward of the detector': True" in report
+    assert all(len(run[k]) > 0 for run in first for k in _StageRecorder.STAGES)
+    moved = dict(first[0], logits=[z.copy() for z in first[0]["logits"]])
+    moved["logits"][0].flat[3] = np.nextafter(moved["logits"][0].flat[3], np.float32(9))
+    assert _first_departure(moved, first[0]).startswith("logits (1 of ")
     assert "ATen parallel backend" in report
     probe = _intra_op_fp_probe()
     assert probe["1+0.75ulp"] == [1.0] and probe["1+0.25ulp"] == [0.0]

@@ -30,7 +30,8 @@ FORBIDDEN = ("jax", "softspoken_tpu", "pandas", "matplotlib")
 
 def test_the_walk_takes_in_every_package_of_the_port():
     """The Qt shim's ``PySide6`` stand-in, the bench, the host trainer's
-    modules and the codec readers are walked (and so imported and parsed
+    modules, the codec readers, the real-audio probe and the fine-tune
+    drivers are walked (and so imported and parsed
     below) like every other module."""
     mods = _modules()
     shim = "softspoken_tpu_torch.ui.qt_shim"
@@ -41,6 +42,9 @@ def test_the_walk_takes_in_every_package_of_the_port():
         "train.augment", "train.data", "train.fit", "io.mp3", "io.oggvorbis",
         "io.opus", "parallel", "parallel.mesh", "parallel.distributed",
         "parallel.grid")} <= set(mods)
+    assert {f"softspoken_tpu_torch.tools.{m}" for m in (
+        "real_audio_check", "ftlib", "ft_music", "ft_synth3", "ft_hisnr", "ft_boundary",
+        "ft_snrfloor")} <= set(mods)
 
 
 def test_importing_every_module_loads_no_jax():
