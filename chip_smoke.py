@@ -3,7 +3,7 @@
     python3 chip_smoke.py              # every phase; needs one CUDA card
     python3 chip_smoke.py --kernels    # build + check the kernels only
     python3 chip_smoke.py --mesh-only  # what needs several cards, over all of them
-    python3 chip_smoke.py --tools-only # phases 1-2, then the maintainers' tools (14, 15)
+    python3 chip_smoke.py --tools-only # phases 1-2, then the maintainers' tools (14-16)
 
 Phases:
   1. device and toolchain: the card's name and power limit, nvcc/triton,
@@ -176,7 +176,7 @@ Phases:
      (K3 and K1 launched); one run each of ``sweep_device`` (base, phase),
      ``profile_chunk`` (its table names K1), ``profile_e2e`` and
      ``bench_train`` (2 outer calls); K1-K3 launches and seconds per tool,
-     the phase's seconds.  ``--tools-only`` runs phases 1-2, this and 15.
+     the phase's seconds.  ``--tools-only`` runs phases 1-2, this, 15 and 16.
  15. slice 16, after ``tools``: finetune — ``tools.ft_boundary --quick`` on
      the card, its stages as subprocesses (train 4 steps at B = 2 from the
      committed .pth, the quick grid, the verdict JSON): stage seconds and
@@ -187,8 +187,28 @@ Phases:
      false_fraction per class within 0.01, F1 within 0.01 / 0.03; then
      ``tools.ft_music --quick`` (K1 in its grid and real-audio stages).
      Without the clips, one line names the runs not made.
+ 16. slice 17, after ``finetune``: round5 — ``tools.train_r05 --quick`` on
+     the card (80 steps at B = 2 from scratch, seed 31337): its final line's
+     steps and the .pth's epoch 80, recipe.json the JAX script's --quick
+     recipe; run again it launches no trainer; in a third workdir holding
+     the recipe and a ``save_pth`` checkpoint at epoch 50 it runs the
+     trainer with ``--steps 30 --resume`` and ends at epoch 80;
+     ``tools.probe_scratch_channels --quick`` (two arms of 8 steps, six
+     conditions of 1 x 30 s scored, K1 from its exit line);
+     ``tools.probe_agc_r05 --files 1 --seconds 30`` in process (8
+     conditions x 2 arms, K1 counted), at its defaults and in parity (float32
+     convolutions, fused with K1 "highest"), the parity run held to the same
+     run on the CPU (a subprocess started first): ``_agc.wav`` bytes equal,
+     F1 within 0.01 / 0.03 per condition and arm; the defaults' F1 printed
+     beside the parity run's (bf16 moves it); the AGC's cumulative-sum
+     form against the JAX script's ``np.convolve`` on one file (seconds,
+     outputs equal); ``tools.retrain_gate_r05 --quick`` of the
+     committed .pth: stage 1's K1 launches > 0; with the clips stage 2 and
+     the verdict, without them an exit naming the clips and one line
+     saying stage 2 and the verdict were not run.  Seconds of each part.
 Prints a JSON line of kernel records (``launches_tools``: per tool of
-phase 14; ``launches_finetune``: per tool and stage of phase 15; K1's ``launches_eval``: its launches
+phase 14; ``launches_finetune``: per tool and stage of phase 15;
+``launches_round5``: per tool and stage of phase 16; K1's ``launches_eval``: its launches
 over phase 8; ``launches_journal``: in phase 10's journaled run;
 ``launches_bench_repeat``, ``launches_bench_device_only`` and
 ``launches_gui``: phase 11's; ``launches_fit`` and ``launches_codecs``:
@@ -2223,22 +2243,34 @@ def phase_tools(work: str, smi: str) -> dict:
 RA_TOL_FRACTION = 0.01  # real_audio_check card vs CPU: false_fraction per class
 
 
-def _ft_driver(name: str, wd: str) -> "tuple[float, str]":
-    """``python -m softspoken_tpu_torch.tools.<name> --quick`` on the card, a
-    subprocess whose stages are subprocesses too: (seconds, its stdout);
-    fails on a nonzero exit."""
+def _tool_proc(name: str, argv: list) -> "tuple[float, subprocess.CompletedProcess]":
+    """``python -m softspoken_tpu_torch.tools.<name> ARGV`` on the card, a
+    subprocess: (seconds, the finished process, its output captured)."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", f"softspoken_tpu_torch.tools.{name}", "--quick",
-                        "--workdir", wd], cwd=HERE, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
+    r = subprocess.run([sys.executable, "-m", f"softspoken_tpu_torch.tools.{name}", *argv],
+                       cwd=HERE, capture_output=True, text=True, timeout=900)
+    return time.perf_counter() - t0, r
+
+
+def _check_tool(name: str, wd: str, r: subprocess.CompletedProcess) -> None:
+    """Fails on a tool's nonzero exit, with its output and the tails of the
+    stage logs in its workdir."""
     if r.returncode != 0:
         tails = []
         for f in sorted(os.listdir(wd)):
             if f.endswith(".log"):
                 with open(os.path.join(wd, f)) as fh:
                     tails.append(f"--- {f}\n" + "".join(fh.readlines()[-20:]))
-        raise AssertionError(f"{name} --quick exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+        raise AssertionError(f"{name} exited {r.returncode}:\n{r.stdout[-3000:]}\n"
                              f"{r.stderr[-3000:]}\n" + "\n".join(tails))
+
+
+def _ft_driver(name: str, wd: str) -> "tuple[float, str]":
+    """``python -m softspoken_tpu_torch.tools.<name> --quick`` on the card, a
+    subprocess whose stages are subprocesses too: (seconds, its stdout);
+    fails on a nonzero exit."""
+    seconds, r = _tool_proc(name, ["--quick", "--workdir", wd])
+    _check_tool(name, wd, r)
     return seconds, r.stdout
 
 
@@ -2385,6 +2417,265 @@ def phase_finetune(work: str, smi: str) -> dict:
                         log(f"--- {os.path.relpath(os.path.join(d, f), fw)} (tail)\n"
                             + "".join(fh.readlines()[-15:]))
         raise AssertionError("finetune phase: " + "; ".join(misses))
+    shutil.rmtree(fw)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 17: the round-5 retrain supervisor, its gate and the two probes
+# the recipe.json that scripts/train_r05.py --quick writes
+R5_QUICK_RECIPE = {
+    "steps": 80, "batch_size": 128, "lr": "1e-3", "seed": 31337,
+    "augment": ["add_reverb", "reduce_volume", "gain_ramp"],
+    "noise_extra": ["granular", "drone", "impact_chain", "crackle"],
+    "noise_extra_frac": 0.2, "noise_extra_policy": "protected", "snr": [-5.0, 20.0],
+    "from_scratch": True, "plan": "docs/ROUND5_PLAN.md", "quick": True}
+R5_BUDGET_S = 250.0  # the phase's share of the script's 1,200 s limit
+
+
+def agc_direct(x: np.ndarray, sr: int, win_s: float = 3.0, floor_db: float = -45.0):
+    """The AGC as scripts/probe_agc_r05.py computes it: the envelope by a
+    direct ``np.convolve`` with the box (O(N * win)), the form that
+    ``tools.probe_agc_r05.agc`` replaces by cumulative sums."""
+    win = max(1, int(sr * win_s))
+    env2 = np.convolve(x.astype(np.float64) ** 2, np.ones(win, np.float64) / win, mode="same")
+    env = np.sqrt(np.maximum(env2, 0.0))
+    floor = 10.0 ** (floor_db / 20.0)
+    ref = max(float(np.median(env)), floor)
+    y = x.astype(np.float64) * (ref / np.maximum(env, floor))
+    peak = np.abs(y).max()
+    if peak > 0.99:
+        y *= 0.99 / peak
+    return y.astype(np.float32)
+
+
+# probe_agc_r05 card vs CPU in parity: float32 convolutions, the fused
+# pipeline on both devices with K1 in "highest", where both compute the same
+# function to ~1e-5.  At the tool's defaults (fast: bf16 convolutions, K1
+# "default") one event of a 30 s file splits on the card and merges on the
+# CPU, whose bf16 rounds otherwise; the card's parity run splits it too.
+# One batch of 64 windows a chunk holds a 30 s file's 56 windows (a 600 s
+# chunk would make the CPU compute 1,024 for each file)
+AGC_PARITY = {"engine": {"precision": "parity", "pipeline": "fused", "mel_kernel": "fused",
+                         "device_batch": 64, "chunk_seconds": 36.0}}
+
+
+def _agc_compare(got_run: dict, want_run: dict, got_name: str, want_name: str) -> list:
+    """Logs each condition and arm's F1 of one AGC probe run beside
+    another's; returns the cells outside 0.01 frame / 0.03 event."""
+    outside = []
+    for tag, row in got_run["conditions"].items():
+        for arm in ("baseline", "agc"):
+            got, want = row[arm], want_run["conditions"][tag][arm]
+            df, de = got["frame_f1"] - want["frame_f1"], got["event_f1"] - want["event_f1"]
+            log(f"round5 probe_agc_r05 {tag} {arm}: frame F1 {got_name} {got['frame_f1']} "
+                f"{want_name} {want['frame_f1']} ({df:+.4f}), event F1 {got['event_f1']}/"
+                f"{want['event_f1']} ({de:+.4f}), taxonomy {got['taxonomy']}/"
+                f"{want['taxonomy']}")
+            if abs(df) > TOOLS_TOL_FRAME or abs(de) > TOOLS_TOL_EVENT:
+                outside.append(f"{tag} {arm} {df:+.4f}/{de:+.4f}")
+    return outside
+
+
+def _r5_supervised(wd: str, seconds: float, out: str, smi: str, label: str) -> dict:
+    """Checks a ``tools.train_r05 --quick`` run into ``wd``: its final JSON
+    line's steps and the .pth's epoch are 80; returns that line."""
+    from softspoken_tpu_torch.ckpt import load_pth
+
+    final = json.loads(next(ln for ln in reversed(out.splitlines()) if ln.startswith("{")))
+    epoch = load_pth(os.path.join(wd, "ckpt_r05.pth"))[1]
+    log(f"round5 train_r05 --quick ({label}): {seconds:.1f} s, steps {final['steps']}, "
+        f"the .pth's epoch {epoch}, wall_s {final['wall_s']} | {smi}")
+    if final["steps"] != 80 or epoch != 80:
+        raise AssertionError(f"round5 train_r05 ({label}) ended at steps {final['steps']}, "
+                             f"epoch {epoch}, not 80:\n{out[-3000:]}")
+    return final
+
+
+def phase_round5(work: str, smi: str) -> dict:
+    """The round-5 tools on the card; the four subprocess tools run side by
+    side (each part's seconds are its own wall beside the others), the AGC
+    probe in process meanwhile.  ``tools.train_r05 --quick`` (80 steps at
+    B = 2 from scratch): its final line's steps and the .pth's epoch 80,
+    recipe.json the JAX script's; then run again, it launches no trainer;
+    in a workdir holding the recipe and a ``save_pth`` checkpoint at epoch
+    50 it runs the trainer with ``--steps 30 --resume`` and ends at epoch
+    80.  ``tools.probe_scratch_channels --quick`` (two arms of 8 steps, six
+    conditions scored; K1 from its ``kernel launches:`` line).
+    ``tools.probe_agc_r05 --files 1 --seconds 30`` in process (K1 counted)
+    at its defaults and in parity (``AGC_PARITY``); the parity run held to
+    the same run on the CPU (a subprocess): the ``_agc.wav`` bytes equal,
+    frame and event F1 within 0.01 / 0.03 per condition and arm; the
+    defaults' F1 printed beside the parity run's.  The AGC's two forms timed
+    on one file, outputs equal.  ``tools.retrain_gate_r05 --quick`` of the
+    committed .pth: stage 1's K1 launches (its grid's exit line); with
+    pygame's clips stage 2 and the verdict, without them an exit naming the
+    clips, and one line saying what was not run.  Returns the launches per
+    tool."""
+    from softspoken_tpu_torch.ckpt import save_pth
+    from softspoken_tpu_torch.io import wavio
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES
+    from softspoken_tpu_torch.tools import DEFAULT_CKPT, read_launches
+    from softspoken_tpu_torch.tools import probe_agc_r05 as PA
+    from softspoken_tpu_torch.tools import real_audio_check as RA
+    from softspoken_tpu_torch.train.loop import create_train_state
+
+    fw = os.path.join(work, "round5")
+    shutil.rmtree(fw, ignore_errors=True)
+    os.makedirs(fw)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    parts: dict = {}
+    misses: list = []
+    wds = {k: os.path.join(fw, k) for k in ("r05", "r05_resume", "probe_scratch", "gate")}
+    os.makedirs(wds["r05_resume"])
+    with open(os.path.join(wds["r05_resume"], "recipe.json"), "w") as f:
+        json.dump(R5_QUICK_RECIPE, f, indent=1)
+    resume_ckpt = os.path.join(wds["r05_resume"], "ckpt_r05.pth")
+    save_pth(resume_ckpt, create_train_state(seed=31337).model.state_dict(), epoch=50)
+    parity_json = os.path.join(fw, "parity.json")
+    with open(parity_json, "w") as f:
+        json.dump(AGC_PARITY, f)
+    agc_modes = {"default": [], "parity": ["--config", parity_json]}
+    cpu_json, cpu_wd = os.path.join(fw, "agc_cpu.json"), os.path.join(fw, "agc_cpu")
+    tools = {"train_r05": ("train_r05", ["--quick", "--workdir", wds["r05"]]),
+             "train_r05 resume": ("train_r05", ["--quick", "--workdir", wds["r05_resume"]]),
+             "probe_scratch_channels": ("probe_scratch_channels",
+                                        ["--quick", "--workdir", wds["probe_scratch"]]),
+             "retrain_gate_r05": ("retrain_gate_r05", ["--quick", "--workdir", wds["gate"],
+                                                       "--ckpt", DEFAULT_CKPT]),
+             "probe_agc_r05 CPU": ("probe_agc_r05", [
+                 "--files", "1", "--seconds", "30", *agc_modes["parity"], "--device", "cpu",
+                 "--workdir", cpu_wd, "--out", cpu_json])}
+    with ThreadPoolExecutor(len(tools)) as pool:
+        futs = {k: pool.submit(_tool_proc, name, argv) for k, (name, argv) in tools.items()}
+        card_wd = os.path.join(fw, "agc_card")
+        card = {}
+        for mode, extra in agc_modes.items():
+            before = {k: KERNEL_LAUNCHES[k] for k in KERNELS}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card[mode] = PA.main(["--files", "1", "--seconds", "30", *extra,
+                                  "--workdir", card_wd,
+                                  "--out", os.path.join(fw, f"agc_card_{mode}.json")])
+            torch.cuda.synchronize()
+            parts[f"probe_agc_r05 {mode}"] = time.perf_counter() - t0
+            launches[f"probe_agc_r05 {mode}"] = {
+                k: KERNEL_LAUNCHES[k] - before[k] for k in KERNELS}
+            if len(card[mode]["conditions"]) != 8 \
+                    or not launches[f"probe_agc_r05 {mode}"]["frame_mel"]:
+                misses.append(f"probe_agc_r05 {mode}: {sorted(card[mode]['conditions'])}, "
+                              f"{launches[f'probe_agc_r05 {mode}']}")
+        done = {k: f.result() for k, f in futs.items()}
+    parts.update({k: seconds for k, (seconds, _r) in done.items()})
+    # timed alone: np.convolve runs on every BLAS thread
+    wav_card = _wav_files(card_wd)
+    x, sr = wavio.read(wav_card[min(k for k in wav_card if not k.endswith("_agc.wav"))])
+    t0 = time.perf_counter()
+    y = PA.agc(x, sr)
+    t_cum = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y_direct = agc_direct(x, sr)
+    t_direct = time.perf_counter() - t0
+    log(f"round5 agc on the host, one {len(x) / sr:.0f} s file: cumulative sums "
+        f"{t_cum:.4f} s, the JAX script's np.convolve {t_direct:.4f} s, float32 outputs "
+        f"equal: {np.array_equal(y, y_direct)} | {smi}")
+    if not np.array_equal(y, y_direct):
+        misses.append("agc's cumulative-sum form differs from np.convolve's")
+
+    for key, wd in (("train_r05", wds["r05"]), ("train_r05 resume", wds["r05_resume"]),
+                    ("probe_scratch_channels", wds["probe_scratch"])):
+        _check_tool(tools[key][0], wd, done[key][1])
+    _r5_supervised(wds["r05"], parts["train_r05"], done["train_r05"][1].stdout, smi, "fresh")
+    with open(os.path.join(wds["r05"], "recipe.json")) as f:
+        if json.load(f) != R5_QUICK_RECIPE:
+            misses.append("train_r05 recipe.json is not the JAX script's --quick recipe")
+    parts["train_r05 again"], out = _ft_driver("train_r05", wds["r05"])
+    with open(os.path.join(wds["r05"], "train_r05.log")) as f:
+        attempts = f.read().count("=== attempt")
+    log(f"round5 train_r05 --quick again: {parts['train_r05 again']:.1f} s, trainer "
+        f"attempts in its log {attempts}")
+    if attempts != 1 or "\n+ " in "\n" + out:
+        misses.append(f"a finished train_r05 launched a trainer again ({attempts} attempts)")
+    out = done["train_r05 resume"][1].stdout
+    _r5_supervised(wds["r05_resume"], parts["train_r05 resume"], out, smi, "resumed at 50")
+    cmd = next(ln for ln in out.splitlines() if ln.startswith("+ "))
+    if ("resuming from step 50 (30 to go)" not in out or " --steps 30 " not in cmd
+            or f" --resume {resume_ckpt} " not in cmd + " "):
+        misses.append(f"train_r05 did not resume from epoch 50: {cmd}")
+
+    out = done["probe_scratch_channels"][1].stdout
+    got = read_launches(out)
+    launches["probe_scratch_channels"] = {k: got.get(k, 0) for k in KERNELS}
+    with open(os.path.join(wds["probe_scratch"], "probe_quick.json")) as f:
+        probe = json.load(f)
+    log(f"round5 probe_scratch_channels --quick: {parts['probe_scratch_channels']:.1f} s "
+        f"(stages {_stage_seconds(out)} s), K1 launches "
+        f"{launches['probe_scratch_channels']['frame_mel']}, frame F1 A/B "
+        + ", ".join(f"{t} {r['frame_f1_A']}/{r['frame_f1_B']}"
+                    for t, r in probe["per_condition"].items()) + f" | {smi}")
+    if (len(probe["per_condition"]) != 6 or len(_stage_seconds(out)) != 2
+            or not launches["probe_scratch_channels"]["frame_mel"]):
+        misses.append(f"probe_scratch_channels: {sorted(probe['per_condition'])}, stages "
+                      f"{_stage_seconds(out)}, {launches['probe_scratch_channels']}")
+
+    r = done["probe_agc_r05 CPU"][1]
+    if r.returncode != 0:
+        raise AssertionError(f"probe_agc_r05 --device cpu exited {r.returncode}:\n"
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+    with open(cpu_json) as f:
+        cpu = json.load(f)
+    wav_cpu = _wav_files(cpu_wd)
+    agc_card = sorted(k for k in wav_card if k.endswith("_agc.wav"))
+    same = [k for k in agc_card if k in wav_cpu and open(wav_card[k], "rb").read()
+            == open(wav_cpu[k], "rb").read()]
+    if len(agc_card) != 8 or same != agc_card or set(wav_card) != set(wav_cpu):
+        misses.append(f"probe_agc_r05 _agc.wav card != CPU: {sorted(set(agc_card) - set(same))}")
+    outside = _agc_compare(card["parity"], cpu, "parity card", "CPU")
+    misses += [f"probe_agc_r05 parity card vs CPU {cell}" for cell in outside]
+    moved = _agc_compare(card["default"], card["parity"], "card default", "parity")
+    log(f"round5 probe_agc_r05 1 x 30 s: card {parts['probe_agc_r05 default']:.1f} s "
+        f"(default), {parts['probe_agc_r05 parity']:.1f} s (parity), CPU "
+        f"{parts['probe_agc_r05 CPU']:.1f} s (parity); {len(same)} _agc.wav byte-equal; "
+        f"cells outside {TOOLS_TOL_FRAME}/{TOOLS_TOL_EVENT}: parity card vs CPU {outside} "
+        f"(held), the card's default vs its parity {moved} (not held: bf16); K1 launches "
+        f"{launches['probe_agc_r05 default']['frame_mel']} (default), "
+        f"{launches['probe_agc_r05 parity']['frame_mel']} (parity) | {smi}")
+
+    wd = wds["gate"]
+    r = done["retrain_gate_r05"][1]
+    gate_out = r.stdout + r.stderr
+    launches["retrain_gate_r05 grid"] = _stage_launches(wd, "grid.log")
+    log(f"round5 retrain_gate_r05 --quick: {parts['retrain_gate_r05']:.1f} s, exit "
+        f"{r.returncode}, stages {_stage_seconds(r.stdout)} s, grid K1 launches "
+        f"{launches['retrain_gate_r05 grid']['frame_mel']} | {smi}")
+    if not launches["retrain_gate_r05 grid"]["frame_mel"]:
+        misses.append("retrain_gate_r05's grid stage launched no frame_mel")
+    missing = RA.missing_clips(RA.pygame_data_dir())
+    if missing:
+        log(f"round5: pygame's clips are absent ({', '.join(missing)}): the gate's stage 2 "
+            "(real_audio_check) and its verdict were not run on the card")
+        if r.returncode == 0 or not all(n in gate_out for n in missing):
+            misses.append(f"retrain_gate_r05 without clips exited {r.returncode}:\n"
+                          f"{gate_out[-2000:]}")
+    elif r.returncode != 0 or not os.path.exists(os.path.join(wd, "RETRAIN_GATE_r05.json")):
+        misses.append(f"retrain_gate_r05 exited {r.returncode}:\n{gate_out[-2000:]}")
+    else:
+        launches["retrain_gate_r05 real"] = _stage_launches(wd, "real.log")
+        if not launches["retrain_gate_r05 real"]["frame_mel"]:
+            misses.append("retrain_gate_r05's real-audio stage launched no frame_mel")
+
+    seconds = time.perf_counter() - t_phase
+    log(f"round5 phase: {seconds:.1f} s (budget {R5_BUDGET_S:.0f} s; parts, side by side "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") | {smi}")
+    if misses:
+        for d, _dirs, files in os.walk(fw):
+            for f in sorted(files):
+                if f.endswith(".log"):
+                    with open(os.path.join(d, f)) as fh:
+                        log(f"--- {os.path.relpath(os.path.join(d, f), fw)} (tail)\n"
+                            + "".join(fh.readlines()[-15:]))
+        raise AssertionError("round5 phase: " + "; ".join(misses))
     shutil.rmtree(fw)
     return launches
 
@@ -3810,7 +4101,8 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="only what needs several cards (slice 14), over every visible card")
     ap.add_argument("--tools-only", action="store_true",
-                    help="phases 1-2, then the tools and finetune phases (slices 15-16) only")
+                    help="phases 1-2, then the tools, finetune and round5 phases "
+                         "(slices 15-17) only")
     ap.add_argument("--first-detect", nargs=2, metavar=("MODE", "WAV"),
                     help="one case of the first-detect measurement (a subprocess of "
                          "the full run): MODE inline or runner")
@@ -3842,9 +4134,11 @@ def main() -> int:
     if args.tools_only:
         tool_launches = phase_tools(work, smi)
         ft_launches = phase_finetune(work, smi)
+        r5_launches = phase_round5(work, smi)
         for rec in (k1, k2, k3):
             rec["launches_tools"] = {t: n[rec["name"]] for t, n in tool_launches.items()}
             rec["launches_finetune"] = {t: n[rec["name"]] for t, n in ft_launches.items()}
+            rec["launches_round5"] = {t: n[rec["name"]] for t, n in r5_launches.items()}
     elif not args.kernels:
         sr, seconds = 32000, 1800.0
         wav = os.path.join(work, "field_30min_32k.wav")
@@ -3873,9 +4167,11 @@ def main() -> int:
         k1["launches_eval"] = phase_eval(work, smi)
         tool_launches = phase_tools(work, smi)
         ft_launches = phase_finetune(work, smi)
+        r5_launches = phase_round5(work, smi)
         for rec in (k1, k2, k3):
             rec["launches_tools"] = {t: n[rec["name"]] for t, n in tool_launches.items()}
             rec["launches_finetune"] = {t: n[rec["name"]] for t, n in ft_launches.items()}
+            rec["launches_round5"] = {t: n[rec["name"]] for t, n in r5_launches.items()}
         k1["launches_journal"] = phase_journal(work, wav, smi)
         phase_concurrency(work, smi)
         phase_doctor()

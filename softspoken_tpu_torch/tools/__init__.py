@@ -1,14 +1,16 @@
 """The maintainers' tools on the port: the checkpoint quality grid and its
 A/B verdict, the codec and music-filter gates, the profiling scripts, the
-real-audio probe and the fine-tune experiment drivers.
+real-audio probe, the fine-tune experiment drivers, and the round-5
+retrain supervisor with its adoption gate and its two probes.
 
 Each module is the counterpart of the script of the same name under the
 repository's ``scripts/`` (same flags, JSON keys and cache layout) and runs
 as ``python -m softspoken_tpu_torch.tools.<name>``: on the CUDA card unless
 ``--device cpu`` is given (the codec gate's ``--cpu`` too).  None writes
 into a file that already exists under the repository's ``docs/``.  The
-fine-tune drivers (``ft_*``, on ``ftlib``) run the others as subprocesses;
-``quality_grid`` and ``real_audio_check`` print their kernel launches on
+fine-tune drivers (``ft_*``, on ``ftlib``) and the round-5 tools run the
+trainer and the others as subprocesses; ``quality_grid``,
+``real_audio_check`` and the two probes print their kernel launches on
 one line at exit (``print_launches``) for such a caller to read back
 (``read_launches``).
 """

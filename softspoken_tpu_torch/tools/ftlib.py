@@ -89,13 +89,30 @@ def train_cmd(py, cand, steps, bs, lr, seed, flags, quick, device) -> list:
     return cmd + device_args(device)
 
 
+def scratch_train_cmd(py, out, steps, bs, flags, quick, device, resume=None) -> list:
+    """Training from scratch (the round-5 retrain and its probe) into
+    ``out`` with the recipe's own train ``flags``; ``resume`` continues a
+    run of the same recipe from its own last checkpoint (never the
+    committed one)."""
+    cmd = [py, "-m", "softspoken_tpu_torch.cli", "train", "--synthetic",
+           "--out", out, "--steps", str(steps), "--batch-size", str(bs), *flags]
+    if quick:
+        cmd += ["--n-inner", "2", "--pool-size", "16"]
+    if resume:
+        cmd += ["--resume", resume]
+    return cmd + device_args(device)
+
+
 def grid_cmd(py, cand, grid_json, wd, quick, device, workdir=True,
-             postfilter_ab=True) -> list:
+             postfilter_ab=True, files=None, seconds=None) -> list:
     """Stage 2: the quality grid of the candidate.  An explicit --out: the
     grid's --quick redirect only fires for its default path, so the output
     lands in the workdir."""
     cmd = [py, "-m", "softspoken_tpu_torch.tools.quality_grid", "--ckpt", cand,
-           "--out", grid_json, "--cache-dir", os.path.join(wd, "grid_cache")]
+           "--out", grid_json]
+    if files is not None:
+        cmd += ["--files", str(files), "--seconds", str(seconds)]
+    cmd += ["--cache-dir", os.path.join(wd, "grid_cache")]
     if workdir:
         cmd += ["--workdir", os.path.join(wd, "grid_work")]
     if not postfilter_ab:
@@ -105,10 +122,12 @@ def grid_cmd(py, cand, grid_json, wd, quick, device, workdir=True,
     return cmd + device_args(device)
 
 
-def real_cmd(py, cand, real_json, quick, device, data_dir=None) -> list:
+def real_cmd(py, cand, real_json, quick, device, data_dir=None, workdir=None) -> list:
     """Stage 3: the real-audio probe of the candidate."""
     cmd = [py, "-m", "softspoken_tpu_torch.tools.real_audio_check", "--ckpt", cand,
            "--out", real_json]
+    if workdir:
+        cmd += ["--workdir", workdir]
     if data_dir:
         cmd += ["--data-dir", data_dir]
     if quick:

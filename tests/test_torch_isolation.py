@@ -30,8 +30,8 @@ FORBIDDEN = ("jax", "softspoken_tpu", "pandas", "matplotlib")
 
 def test_the_walk_takes_in_every_package_of_the_port():
     """The Qt shim's ``PySide6`` stand-in, the bench, the host trainer's
-    modules, the codec readers, the real-audio probe and the fine-tune
-    drivers are walked (and so imported and parsed
+    modules, the codec readers, the real-audio probe, the fine-tune
+    drivers and the round-5 tools are walked (and so imported and parsed
     below) like every other module."""
     mods = _modules()
     shim = "softspoken_tpu_torch.ui.qt_shim"
@@ -44,7 +44,8 @@ def test_the_walk_takes_in_every_package_of_the_port():
         "parallel.grid")} <= set(mods)
     assert {f"softspoken_tpu_torch.tools.{m}" for m in (
         "real_audio_check", "ftlib", "ft_music", "ft_synth3", "ft_hisnr", "ft_boundary",
-        "ft_snrfloor")} <= set(mods)
+        "ft_snrfloor", "train_r05", "retrain_gate_r05", "probe_agc_r05",
+        "probe_scratch_channels")} <= set(mods)
 
 
 def test_importing_every_module_loads_no_jax():
