@@ -227,6 +227,7 @@ def _detect(args, cfg, device) -> Dict:
         "errors": report.errors,
         **report.throughput,
         "stage_seconds": report.timers,
+        "counts": report.counts,
         "detections_csv": store_path,
         "device": str(det.device),
     }

@@ -49,7 +49,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -62,6 +61,7 @@ from ..config import Config, DEFAULT_CONFIG
 from ..io import internal_length, load_audio, stream_chunks
 from ..models import build_model
 from ..ops import mel as melops
+from ..runtime.metrics import span
 from . import regions as R
 from .planner import num_windows_for_padded_length, window_starts
 
@@ -215,8 +215,13 @@ class Detector:
         """(chunk_buf,) f32 + (nb, B) int32 window starts → mask logits
         (nb·B, 256), batch by batch.  Both pipelines call this;
         ``parallel.MeshDetector`` reroutes it to shard each batch over a
-        mesh."""
-        return torch.cat([self._forward(wave, starts[i]) for i in range(starts.shape[0])])
+        mesh.  Each batch is a span ``chunk.batch`` of the thread's recorder
+        (``runtime.metrics.span``)."""
+        out = []
+        for i in range(starts.shape[0]):
+            with span("chunk.batch"):
+                out.append(self._forward(wave, starts[i]))
+        return torch.cat(out)
 
     def _forward_full(self, wave: torch.Tensor, starts: torch.Tensor):
         """Like ``_forward`` through the plain mel chain, with the spec head:
@@ -305,14 +310,12 @@ class Detector:
         def fill_chunk(ci: int) -> torch.Tensor:
             # a fresh (pinned) buffer per chunk: none is rewritten while an
             # upload from it may be in flight
-            t0 = time.perf_counter()
-            w0, w1 = ranges[ci]
-            s0 = int(starts[w0])
-            s1 = min(int(starts[w1 - 1]) + cfg.samples_per_window, padded_len)
-            buf = torch.zeros(buf_len, dtype=torch.float32, pin_memory=cuda)
-            fill_segment(s0, s1, buf.numpy()[: s1 - s0])
-            if timers is not None:
-                timers.add("host_fill", time.perf_counter() - t0)
+            with tt("host_fill"):
+                w0, w1 = ranges[ci]
+                s0 = int(starts[w0])
+                s1 = min(int(starts[w1 - 1]) + cfg.samples_per_window, padded_len)
+                buf = torch.zeros(buf_len, dtype=torch.float32, pin_memory=cuda)
+                fill_segment(s0, s1, buf.numpy()[: s1 - s0])
             return buf
 
         out: List[np.ndarray] = []

@@ -44,7 +44,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import nullcontext
+from contextlib import ExitStack, nullcontext
 from functools import lru_cache
 from typing import Callable, List, Optional, Tuple
 
@@ -56,6 +56,7 @@ from ..io.audio import probe, read_mono
 from ..io.decimate import WireDecimator, decim_factor
 from ..io.resample import _ratio, polyphase_apply, polyphase_block_geometry
 from ..ops import adpcm, mulaw
+from ..runtime.metrics import Span, count, current_key, recording, span
 from . import regions as R
 from .detector import DetectionResult, Detector
 from .planner import num_windows_for_padded_length, window_starts
@@ -154,33 +155,39 @@ class FusedStreamingEngine:
                  carry_sum: torch.Tensor, carry_cnt: torch.Tensor):
         """One chunk: native (in_len,) → (avg, cnt, carry_sum', carry_cnt'),
         avg/cnt of length glen.  ``place`` is the grid placement that
-        ``_placement`` made and checked on the host."""
-        if self.kind == "mulaw8":
-            x = mulaw.decode_device(native)
-        elif self.kind == "adpcm4":
-            x = adpcm.decode_device(native, self.in_len)  # K3 on the card
-        else:
-            x = native.to(torch.float32)
-            if self.kind == "i16":
-                x = x * (1.0 / 32768.0)
-        if self.W is not None:
-            x = polyphase_apply(x, self.W, wmin=self.wmin, pad_l=self.pad_l,
-                                n_blocks=self.n_blocks, n_copies=self.n_copies,
-                                down=self.down, width=self.width)
-        if not 0 <= lo <= x.shape[0] - self.buf_len:
-            raise RuntimeError(f"chunk window out of range: lo={lo} len={x.shape[0]}")
-        internal = x[lo: lo + self.buf_len]
+        ``_placement`` made and checked on the host.  Its enqueue is three
+        spans of the thread's recorder: chunk.decode (wire decode and
+        resample), chunk.batch per batch (``_forward_chunk``) and chunk.grid
+        (grid update, carry and average)."""
+        with span("chunk.decode"):
+            if self.kind == "mulaw8":
+                x = mulaw.decode_device(native)
+            elif self.kind == "adpcm4":
+                x = adpcm.decode_device(native, self.in_len)  # K3 on the card
+            else:
+                x = native.to(torch.float32)
+                if self.kind == "i16":
+                    x = x * (1.0 / 32768.0)
+            if self.W is not None:
+                x = polyphase_apply(x, self.W, wmin=self.wmin, pad_l=self.pad_l,
+                                    n_blocks=self.n_blocks, n_copies=self.n_copies,
+                                    down=self.down, width=self.width)
+            if not 0 <= lo <= x.shape[0] - self.buf_len:
+                raise RuntimeError(f"chunk window out of range: lo={lo} len={x.shape[0]}")
+            internal = x[lo: lo + self.buf_len]
 
         logits = self._forward_chunk(internal, starts)            # (chunk_w, 256)
-        sum_g, cnt_g = self._accumulate(
-            torch.stack([logits * valid[:, None], valid[:, None].expand(self.chunk_w, 256)]),
-            place)
-        sum_g[:CARRY] += carry_sum
-        cnt_g[:CARRY] += carry_cnt
-        if not 0 <= fin <= self.glen - CARRY:
-            raise RuntimeError(f"carry slice out of range: fin={fin} glen={self.glen}")
-        avg = sum_g / torch.clamp(cnt_g, min=1.0)
-        return avg, cnt_g, sum_g[fin: fin + CARRY].clone(), cnt_g[fin: fin + CARRY].clone()
+        with span("chunk.grid"):
+            sum_g, cnt_g = self._accumulate(
+                torch.stack([logits * valid[:, None],
+                             valid[:, None].expand(self.chunk_w, 256)]),
+                place)
+            sum_g[:CARRY] += carry_sum
+            cnt_g[:CARRY] += carry_cnt
+            if not 0 <= fin <= self.glen - CARRY:
+                raise RuntimeError(f"carry slice out of range: fin={fin} glen={self.glen}")
+            avg = sum_g / torch.clamp(cnt_g, min=1.0)
+            return avg, cnt_g, sum_g[fin: fin + CARRY].clone(), cnt_g[fin: fin + CARRY].clone()
 
     def _accumulate(self, vals: torch.Tensor, place) -> torch.Tensor:
         """(k, chunk_w, 256) per-window values → (k, glen) grid sums, each
@@ -299,11 +306,19 @@ class FusedStreamingEngine:
         ``read_native(start, frames)`` returns mono samples, clamped at EOF:
         float32 for the "f32" wire, int16 for every other.  ``journal``
         (engine.journal.ChunkJournal) resumes from and saves chunk progress.
-        ``timers`` (runtime.metrics.StageTimers) collects host_fill /
-        device_put on the read-ahead threads and wait_prepare / dispatch /
-        checkpoint / final_fetch here.
+        ``timers`` (runtime.metrics.StageTimers) records spans under the
+        calling thread's key (the runner's file index): host_fill and
+        device_put on the read-ahead threads; readahead_start (their start),
+        wait_prepare, dispatch (the chunk program's spans inside),
+        checkpoint, readahead_join, final_fetch (device_wait, then fetch) and
+        regions here; and counts chunks, batches, windows_live (real windows)
+        and windows_launched (``chunk_w`` a chunk).
         """
-        tt = timers.time if timers is not None else (lambda _n: nullcontext())
+        key = current_key()
+        with recording(timers, key):
+            return self._run(read_native, native_frames, progress, journal, timers, key)
+
+    def _run(self, read_native, native_frames, progress, journal, timers, key):
         cfg = self.cfg
         up, down = self.up, self.down
         cuda = self.device.type == "cuda"
@@ -360,7 +375,10 @@ class FusedStreamingEngine:
 
         def prepare(ci: int):
             """Host side of chunk ci (fill thread): pinned staging + metadata."""
-            t_fill = time.perf_counter()
+            with recording(timers, key), span("host_fill"):
+                return fill(ci)
+
+        def fill(ci: int):
             w0 = ci * self.chunk_w
             w1 = min(w0 + self.chunk_w, n_windows)
             s0 = int(starts_g[w0])
@@ -412,8 +430,6 @@ class FusedStreamingEngine:
                 host.append(place)
             if cuda:
                 host = [host[0]] + [t.pin_memory() for t in host[1:]]
-            if timers is not None:
-                timers.add("host_fill", time.perf_counter() - t_fill)
             return host, place, lo, fin, w1
 
         up_stream = torch.cuda.Stream(self.device) if cuda else None
@@ -422,31 +438,30 @@ class FusedStreamingEngine:
             """Wire side of one chunk (upload thread): async copies of the
             pinned payload on a side stream, with an event to wait on."""
             host, place, lo, fin, w1 = fill_fut.result()
-            t_put = time.perf_counter()
             ev = None
-            with torch.cuda.stream(up_stream) if cuda else nullcontext():
+            with recording(timers, key), span("device_put"), \
+                    torch.cuda.stream(up_stream) if cuda else nullcontext():
                 dev = [t.to(self.device, non_blocking=True) for t in host]
                 if cuda:
                     ev = torch.cuda.Event()
                     ev.record(up_stream)
             if isinstance(place, torch.Tensor):
                 place = dev[3]
-            if timers is not None:
-                timers.add("device_put", time.perf_counter() - t_put)
             return dev, place, ev, lo, fin, w1
 
         depth = max(1, cfg.engine.readahead_chunks)
         pending: List[Tuple[int, torch.Tensor]] = []
         with ThreadPoolExecutor(max_workers=1) as fill_ex, \
                 ThreadPoolExecutor(max_workers=1) as up_ex:
-            futs = deque(up_ex.submit(upload, fill_ex.submit(prepare, ci))
-                         for ci in range(k0, min(k0 + depth, n_chunks)))
+            with span("readahead_start"):  # the first submits start both threads
+                futs = deque(up_ex.submit(upload, fill_ex.submit(prepare, ci))
+                             for ci in range(k0, min(k0 + depth, n_chunks)))
             for ci in range(k0, n_chunks):
-                with tt("wait_prepare"):
+                with span("wait_prepare"):
                     dev, place, ev, lo, fin, w1 = futs.popleft().result()
                 if ci + depth < n_chunks:
                     futs.append(up_ex.submit(upload, fill_ex.submit(prepare, ci + depth)))
-                with tt("dispatch"):
+                with span("dispatch"):
                     if cuda:
                         cur = torch.cuda.current_stream(self.device)
                         cur.wait_event(ev)
@@ -456,6 +471,10 @@ class FusedStreamingEngine:
                     avg, _cnt, carry_sum, carry_cnt = self._program(
                         native, lo, fin, starts_d.view(self.nb, self.B), place,
                         valid_d, carry_sum, carry_cnt)
+                count("chunks")
+                count("batches", self.nb)
+                count("windows_live", w1 - ci * self.chunk_w)
+                count("windows_launched", self.chunk_w)
                 pending.append((fin, avg))
                 if progress is not None:
                     progress(w1 / n_windows)
@@ -463,7 +482,7 @@ class FusedStreamingEngine:
                         and (ci + 1 - k0) % every == 0):
                     # checkpoint: the grids completed since the last save and
                     # the carry, in one device→host transfer
-                    with tt("checkpoint"):
+                    with span("checkpoint"):
                         got = torch.cat([a[:f] for f, a in pending]
                                         + [carry_sum, carry_cnt]).cpu().numpy()
                         at = 0
@@ -472,27 +491,40 @@ class FusedStreamingEngine:
                             at += f
                         pending = []
                         journal.save(done_parts, got[at: at + CARRY], got[at + CARRY:])
+            with span("readahead_join"):
+                fill_ex.shutdown()
+                up_ex.shutdown()
 
-        # one device→host transfer for every grid not yet fetched
-        with tt("final_fetch"):
-            tail = (torch.cat([a[:fin] for fin, a in pending]).cpu().numpy()
-                    if pending else np.zeros(0, np.float32))
-        avg_values = np.concatenate(done_parts + [tail])[:covered]
+        # one device→host transfer for every grid not yet fetched: the host
+        # first waits for the chunks' device work (device_wait), then copies
+        tail = np.zeros(0, np.float32)
+        with span("final_fetch"):
+            if pending:
+                with span("device_wait"):
+                    grids = torch.cat([a[:fin] for fin, a in pending])
+                    if cuda:
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(self.device))
+                        done.synchronize()
+                with span("fetch"):
+                    tail = grids.cpu().numpy()
         if journal is not None:
             journal.clear()
-        if cfg.engine.min_count > 1:
-            # coverage counts are a pure function of the window offsets
-            # (NNDetector.py:153,181-183): recompute them on the host
-            cnt = np.zeros(covered, np.int64)
-            idx = (bins_g[:, None] + np.arange(256)[None, :]).ravel()
-            np.add.at(cnt, idx[idx < covered], 1)
-            avg_values = np.where(cnt >= cfg.engine.min_count, avg_values, -np.inf)
-        regions = R.find_speech_regions(
-            avg_values, cfg.engine.threshold, cfg.engine.break_duration,
-            exit_threshold=cfg.engine.exit_threshold,
-            smooth_bins=cfg.engine.grid_smooth,
-        )
-        regions = R.shift_regions(regions, -cfg.engine.pad_seconds)
+        with span("regions"):
+            avg_values = np.concatenate(done_parts + [tail])[:covered]
+            if cfg.engine.min_count > 1:
+                # coverage counts are a pure function of the window offsets
+                # (NNDetector.py:153,181-183): recompute them on the host
+                cnt = np.zeros(covered, np.int64)
+                idx = (bins_g[:, None] + np.arange(256)[None, :]).ravel()
+                np.add.at(cnt, idx[idx < covered], 1)
+                avg_values = np.where(cnt >= cfg.engine.min_count, avg_values, -np.inf)
+            regions = R.find_speech_regions(
+                avg_values, cfg.engine.threshold, cfg.engine.break_duration,
+                exit_threshold=cfg.engine.exit_threshold,
+                smooth_bins=cfg.engine.grid_smooth,
+            )
+            regions = R.shift_regions(regions, -cfg.engine.pad_seconds)
         return DetectionResult(regions, avg_values, n_windows,
                                native_frames / self.native_sr)
 
@@ -591,12 +623,11 @@ def _maybe_wire_decimate(detector: Detector, read_fn, frames: int, sr: int, kind
     return d.read, d.frames, d.sr
 
 
-def _run_mono_f32_source(detector: Detector, read_f32, frames: int, sr: int,
-                         progress, journal=None, timers=None) -> DetectionResult:
-    """The fused engine over a mono float32 range reader (the host-decoded
-    formats): on a lossy wire the samples are rounded to int16 first
-    (≤3e-5 full scale, inside the codec's own quantization); exact wires
-    keep float32."""
+def _f32_source(detector: Detector, read_f32, frames: int, sr: int):
+    """``(engine, read, frames)`` for a mono float32 range reader (the
+    host-decoded formats): on a lossy wire the samples are rounded to int16
+    first (≤3e-5 full scale, inside the codec's own quantization); exact
+    wires keep float32."""
     kind = _i16_kind(detector)
     if kind in LOSSY:
         def read_i16(start: int, n: int) -> np.ndarray:
@@ -605,10 +636,61 @@ def _run_mono_f32_source(detector: Detector, read_f32, frames: int, sr: int,
                            ).astype(np.int16)
 
         rd, nfr, wire_sr = _maybe_wire_decimate(detector, read_i16, frames, sr, kind)
-        engine = get_fused_engine(detector, wire_sr, kind)
-        return engine.run(rd, nfr, progress, journal, timers=timers)
-    engine = get_fused_engine(detector, sr, "f32")
-    return engine.run(read_f32, frames, progress, journal, timers=timers)
+        return get_fused_engine(detector, wire_sr, kind), rd, nfr
+    return get_fused_engine(detector, sr, "f32"), read_f32, frames
+
+
+def _open_source(detector: Detector, path: str, inf, stack: ExitStack):
+    """``(engine, read, frames)`` for a probed file, its reader opened on
+    ``stack``: the dispatch of ``detect_file_fused``."""
+    kind = _i16_kind(detector)
+    if inf.subtype.startswith("FLAC"):
+        if inf.channels == 1 and (inf.bits_per_sample <= 16 or kind in LOSSY):
+            smr = stack.enter_context(flac.SequentialMonoReader(
+                path, dtype="i16", truncate_to_i16=inf.bits_per_sample > 16))
+            rd, nfr, sr = _maybe_wire_decimate(
+                detector, smr.read, inf.frames, inf.samplerate, kind)
+            return get_fused_engine(detector, sr, kind), rd, nfr
+        smr = stack.enter_context(flac.SequentialMonoReader(path))
+        return get_fused_engine(detector, inf.samplerate, "f32"), smr.read, inf.frames
+
+    if isinstance(inf, wavio.WavInfo) and inf.subtype == "PCM_16" and inf.channels == 1:
+        reader = stack.enter_context(wavio.RawReader(path))
+
+        def read_native(start: int, frames: int) -> np.ndarray:
+            reader.will_need(start + frames, frames)  # prefetch the next chunk
+            return reader.read_raw(start, frames).view("<i2")
+
+        rd, nfr, sr = _maybe_wire_decimate(
+            detector, read_native, inf.frames, inf.samplerate, kind)
+        return get_fused_engine(detector, sr, kind), rd, nfr
+
+    if (isinstance(inf, wavio.WavInfo) and inf.channels == 1
+            and inf.subtype in ("PCM_24", "PCM_32", "PCM_U8") and kind in LOSSY):
+        # the reference's wire for these: mulaw8 under either lossy codec
+        reader = stack.enter_context(wavio.RawReader(path))
+
+        def read_top16(start: int, frames: int) -> np.ndarray:
+            reader.will_need(start + frames, frames)
+            return wavio.top16_from_raw(reader.read_raw(start, frames), inf.subtype)
+
+        rd, nfr, sr = _maybe_wire_decimate(
+            detector, read_top16, inf.frames, inf.samplerate, "mulaw8")
+        return get_fused_engine(detector, sr, "mulaw8"), rd, nfr
+
+    if inf.subtype == "OPUS" or inf.subtype.startswith("MPEG"):
+        # one persistent handle: a per-chunk read would re-open the file and
+        # re-scan an MP3 or re-enter an Opus stream with its pre-roll (no
+        # longer bit-exact at the seams); Opus serves the backward chunk
+        # overlap from the reader's history
+        seq = opus if inf.subtype == "OPUS" else mp3
+        smr = stack.enter_context(seq.SequentialMonoReader(path))
+        return _f32_source(detector, smr.read, inf.frames, inf.samplerate)
+
+    def read_f32(start: int, frames: int) -> np.ndarray:
+        return read_mono(path, start=start, frames=frames)[0]
+
+    return _f32_source(detector, read_f32, inf.frames, inf.samplerate)
 
 
 def detect_file_fused(
@@ -634,60 +716,13 @@ def detect_file_fused(
 
     Each int16 stream on a lossy wire goes through ``_maybe_wire_decimate``.
     With ``journal_dir`` set, chunk progress persists there and a killed run
-    resumes mid-file, on every branch.
+    resumes mid-file, on every branch.  The probe, the journal's binding,
+    the reader's open and the engine's lookup are the span ``probe`` of
+    ``timers``.
     """
-    kind = _i16_kind(detector)
-    inf = probe(path)
-    journal = _make_journal(detector, path, journal_dir)
-    if inf.subtype.startswith("FLAC"):
-        if inf.channels == 1 and (inf.bits_per_sample <= 16 or kind in LOSSY):
-            with flac.SequentialMonoReader(
-                    path, dtype="i16", truncate_to_i16=inf.bits_per_sample > 16) as smr:
-                rd, nfr, sr = _maybe_wire_decimate(
-                    detector, smr.read, inf.frames, inf.samplerate, kind)
-                engine = get_fused_engine(detector, sr, kind)
-                return engine.run(rd, nfr, progress, journal, timers=timers)
-        with flac.SequentialMonoReader(path) as smr:
-            engine = get_fused_engine(detector, inf.samplerate, "f32")
-            return engine.run(smr.read, inf.frames, progress, journal, timers=timers)
-
-    if isinstance(inf, wavio.WavInfo) and inf.subtype == "PCM_16" and inf.channels == 1:
-        with wavio.RawReader(path) as reader:
-            def read_native(start: int, frames: int) -> np.ndarray:
-                reader.will_need(start + frames, frames)  # prefetch the next chunk
-                return reader.read_raw(start, frames).view("<i2")
-
-            rd, nfr, sr = _maybe_wire_decimate(
-                detector, read_native, inf.frames, inf.samplerate, kind)
-            engine = get_fused_engine(detector, sr, kind)
-            return engine.run(rd, nfr, progress, journal, timers=timers)
-
-    if (isinstance(inf, wavio.WavInfo) and inf.channels == 1
-            and inf.subtype in ("PCM_24", "PCM_32", "PCM_U8") and kind in LOSSY):
-        # the reference's wire for these: mulaw8 under either lossy codec
-        with wavio.RawReader(path) as reader:
-            def read_top16(start: int, frames: int) -> np.ndarray:
-                reader.will_need(start + frames, frames)
-                return wavio.top16_from_raw(reader.read_raw(start, frames), inf.subtype)
-
-            rd, nfr, sr = _maybe_wire_decimate(
-                detector, read_top16, inf.frames, inf.samplerate, "mulaw8")
-            engine = get_fused_engine(detector, sr, "mulaw8")
-            return engine.run(rd, nfr, progress, journal, timers=timers)
-
-    if inf.subtype == "OPUS" or inf.subtype.startswith("MPEG"):
-        # one persistent handle: a per-chunk read would re-open the file and
-        # re-scan an MP3 or re-enter an Opus stream with its pre-roll (no
-        # longer bit-exact at the seams); Opus serves the backward chunk
-        # overlap from the reader's history
-        seq = opus if inf.subtype == "OPUS" else mp3
-        with seq.SequentialMonoReader(path) as smr:
-            return _run_mono_f32_source(detector, smr.read, inf.frames,
-                                        inf.samplerate, progress, journal,
-                                        timers=timers)
-
-    def read_f32(start: int, frames: int) -> np.ndarray:
-        return read_mono(path, start=start, frames=frames)[0]
-
-    return _run_mono_f32_source(detector, read_f32, inf.frames, inf.samplerate,
-                                progress, journal, timers=timers)
+    with ExitStack() as stack:
+        with Span(timers, "probe", current_key()):
+            inf = probe(path)
+            journal = _make_journal(detector, path, journal_dir)
+            engine, read, frames = _open_source(detector, path, inf, stack)
+        return engine.run(read, frames, progress, journal, timers=timers)

@@ -2,7 +2,9 @@
 
 The reference's headline number is the Voice Detector screen's "Processing
 Speed (audio sec / real sec)" (``silencer_ui.py:152-158, 276-299``); here it
-is a counter decoupled from any GUI, beside accumulating stage timers.
+is a counter decoupled from any GUI, beside the port's one recorder of spans
+and counters (``StageTimers``), whose spans also reach an active
+``torch.profiler`` on every thread.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+import torch
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -55,31 +60,111 @@ class ThroughputMeter:
         }
 
 
+class Span:
+    """One span of work: its wall time goes to ``recorder`` (a StageTimers,
+    or None), and while a ``torch.profiler`` is active it is also a
+    ``record_function`` on the calling thread, on the profiler's clock, with
+    ``key`` (the file's index; None: no argument) as its argument.  With no
+    profiler active the cost beyond the clock is one flag read."""
+
+    __slots__ = ("_recorder", "_name", "_key", "_t0", "_handle")
+
+    def __init__(self, recorder: Optional["StageTimers"], name: str,
+                 key: Optional[int] = None):
+        self._recorder, self._name, self._key = recorder, name, key
+
+    def __enter__(self) -> "Span":
+        self._handle = None
+        if _profiler._is_profiler_enabled:
+            args = () if self._key is None else (self._key,)
+            self._handle = torch.autograd._record_function_with_args_enter(self._name, *args)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        dt = time.perf_counter() - self._t0
+        if self._recorder is not None:
+            self._recorder.add(self._name, dt)
+        if self._handle is not None:
+            torch.autograd._record_function_with_args_exit(self._handle)
+        return False
+
+
+# this thread's recorder and key: deep code without a ``timers`` parameter
+# (the chunk program, the grid update, the forward per batch) records here
+_current = threading.local()
+
+
+def current_key() -> Optional[int]:
+    """The key (file index) of the calling thread's current recorder."""
+    return getattr(_current, "key", None)
+
+
+@contextmanager
+def recording(recorder: Optional["StageTimers"], key: Optional[int] = None):
+    """Make ``recorder`` and ``key`` the calling thread's current ones for
+    the block (``recorder`` None: spans reach only an active profiler)."""
+    prev = (getattr(_current, "recorder", None), current_key())
+    _current.recorder, _current.key = recorder, key
+    try:
+        yield
+    finally:
+        _current.recorder, _current.key = prev
+
+
+def span(name: str) -> Span:
+    """A span into the calling thread's current recorder, under its key."""
+    return Span(getattr(_current, "recorder", None), name, current_key())
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to a counter of the calling thread's current recorder."""
+    recorder = getattr(_current, "recorder", None)
+    if recorder is not None:
+        recorder.count(name, n)
+
+
 class StageTimers:
-    """Accumulating named wall-clock timers; safe to use from several
-    threads (the fused engine's fill and upload threads add to it)."""
+    """The port's recorder of spans and counters; safe to use from several
+    threads (the fused engine's fill and upload threads add to it).
+
+    ``time(name)`` is a span (``Span``): its seconds add to ``totals[name]``
+    and one to ``calls[name]``.  ``count(name, n)`` adds to ``counters``.
+    ``summary()`` is one flat dict: each span's seconds under its name and
+    each counter under ``count.<name>``."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        self.calls: Dict[str, int] = defaultdict(int)
+        self.counters: Dict[str, int] = defaultdict(int)
         self._lock = threading.Lock()
 
     def add(self, name: str, seconds: float) -> None:
         with self._lock:
             self.totals[name] += seconds
-            self.counts[name] += 1
+            self.calls[name] += 1
 
-    @contextmanager
-    def time(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0)
+    def count(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self.counters[name] += n
+
+    def time(self, name: str) -> Span:
+        """A span of this recorder under the calling thread's key."""
+        return Span(self, name, current_key())
+
+    def seconds(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self.totals)
+
+    def counted(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.counters)
 
     def summary(self) -> Dict[str, float]:
         with self._lock:
-            return dict(self.totals)
+            out = dict(self.totals)
+            out.update((f"count.{k}", float(v)) for k, v in self.counters.items())
+            return out
 
     def report(self) -> str:
         return json.dumps({k: round(v, 4) for k, v in sorted(self.summary().items())})

@@ -21,6 +21,10 @@ card in place of its TPU: the fused pipeline always streams; otherwise a
 file streams only above 1 GiB, and smaller files are decoded in memory by a
 one-deep prefetch thread, so file i+1's decode overlaps file i's detection.
 ``streaming=True`` (the CLI's ``--streaming``) forces streaming.
+
+The runner's ``timers`` (runtime.metrics.StageTimers) records every file's
+spans (decode, detect and the engine's inside it, persist) under the file's
+index in the run's list, on whichever thread does the work.
 """
 
 from __future__ import annotations
@@ -30,13 +34,15 @@ import threading
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, Optional
 
 from ..config import Config, DEFAULT_CONFIG
-from ..engine import Detector
 from ..io import load_audio
 from ..project.store import DetectionStore
-from .metrics import StageTimers, ThroughputMeter
+from .metrics import StageTimers, ThroughputMeter, recording
+
+if TYPE_CHECKING:  # the engine records into this package's metrics
+    from ..engine import Detector
 
 STREAM_ABOVE_BYTES = 1 << 30  # files larger than this stream on the host pipeline
 
@@ -64,7 +70,8 @@ class RunReport:
     errors: Dict[str, str] = field(default_factory=dict)
     stopped: bool = False
     throughput: Dict[str, float] = field(default_factory=dict)
-    timers: Dict[str, float] = field(default_factory=dict)
+    timers: Dict[str, float] = field(default_factory=dict)   # span seconds
+    counts: Dict[str, int] = field(default_factory=dict)     # the counters
 
 
 class DetectRunner:
@@ -106,12 +113,12 @@ class DetectRunner:
         except OSError:
             return False
 
-    def _prepare(self, path: str):
+    def _prepare(self, index: int, path: str):
         """None for a file that streams, else its decoded waveform (runs on
         the prefetch thread).  Raises IOError when the decode fails."""
         if self._use_streaming(path):
             return None
-        with self.timers.time("decode"):
+        with recording(self.timers, index), self.timers.time("decode"):
             audio, _sr = load_audio(path, target_sr=self.cfg.dsp.sample_rate)
         if audio is None:
             raise IOError(f"failed to decode {path}")
@@ -127,20 +134,21 @@ class DetectRunner:
                                                            timers=self.timers)
             return self.detector.detect_waveform(audio, progress, timers=self.timers)
 
-    def _task(self, path: str, fut: Future, cb: RunCallbacks,
+    def _task(self, index: int, path: str, fut: Future, cb: RunCallbacks,
               journal_dir: Optional[str]):
         """One file on a worker thread: its decode, then its detection,
         retried once after a transient fault.  A kernel that fails to build
         or launch fails the same way again and becomes the file's error;
-        nothing falls back to a plain version."""
+        nothing falls back to a plain version.  Its spans carry ``index``."""
         audio = fut.result()
-        try:
-            return self._detect(path, audio, cb, journal_dir)
-        except (IOError, NotImplementedError, ValueError):
-            raise  # unreadable or unsupported input: a retry cannot help
-        except Exception as e:  # noqa: BLE001 — one retry for a transient fault
-            cb.emit("message", f"retrying {path} after: {e!r}")
-            return self._detect(path, audio, cb, journal_dir)
+        with recording(self.timers, index):
+            try:
+                return self._detect(path, audio, cb, journal_dir)
+            except (IOError, NotImplementedError, ValueError):
+                raise  # unreadable or unsupported input: a retry cannot help
+            except Exception as e:  # noqa: BLE001 — one retry for a transient fault
+                cb.emit("message", f"retrying {path} after: {e!r}")
+                return self._detect(path, audio, cb, journal_dir)
 
     def run(self, files: Iterable[str],
             callbacks: Optional[RunCallbacks] = None) -> RunReport:
@@ -153,22 +161,22 @@ class DetectRunner:
         mesh = getattr(self.detector, "_fused_mesh", None)
         self.meter.n_chips = mesh.size if mesh is not None else 1
         already = self.store.processed_files() if self.cfg.engine.skip_processed_files else set()
-        todo = iter([p for p in files if p not in already])
+        todo = iter([(i, p) for i, p in enumerate(files) if p not in already])
         journal_dir = self.journal_dir()
         k = self.cfg.engine.file_concurrency
         prefetch = ThreadPoolExecutor(max_workers=1)
         workers = ThreadPoolExecutor(max_workers=k)
         decoded: Dict[str, Future] = {}
-        in_flight: deque = deque()  # (path, future) in submission order
+        in_flight: deque = deque()  # (index, path, future) in submission order
 
         def prefetch_next() -> None:
-            path = next(todo, None)
-            if path is not None:
-                decoded[path] = prefetch.submit(self._prepare, path)
+            item = next(todo, None)
+            if item is not None:
+                decoded[item[1]] = prefetch.submit(self._prepare, *item)
 
         try:
             prefetch_next()
-            for path in files:
+            for index, path in enumerate(files):
                 if self._stop.is_set():
                     report.stopped = True
                     break
@@ -180,8 +188,8 @@ class DetectRunner:
                 fut = decoded.pop(path)
                 prefetch_next()  # the next decode overlaps this detection
                 cb.emit("file_started", path)
-                in_flight.append((path, workers.submit(self._task, path, fut, cb,
-                                                       journal_dir)))
+                in_flight.append((index, path, workers.submit(
+                    self._task, index, path, fut, cb, journal_dir)))
                 while len(in_flight) >= k:
                     self._settle(*in_flight.popleft(), cb, report, total)
             while in_flight:  # after a stop() too: the files in flight settle
@@ -192,7 +200,8 @@ class DetectRunner:
             prefetch.shutdown(wait=True, cancel_futures=True)
             workers.shutdown(wait=True, cancel_futures=True)
             report.throughput = self.meter.summary()
-            report.timers = self.timers.summary()
+            report.timers = self.timers.seconds()
+            report.counts = self.timers.counted()
             cb.emit("finished")
         return report
 
@@ -200,9 +209,10 @@ class DetectRunner:
         advanced = report.files_done + report.files_skipped + len(report.errors)
         cb.emit("overall_progress", advanced / max(1, total) * 100.0)
 
-    def _settle(self, path: str, fut: Future, cb: RunCallbacks, report: RunReport,
-                total: int) -> None:
-        """Persist one detection (this thread only, in submission order)."""
+    def _settle(self, index: int, path: str, fut: Future, cb: RunCallbacks,
+                report: RunReport, total: int) -> None:
+        """Persist one detection (this thread only, in submission order);
+        the span ``persist`` carries the file's ``index``."""
         try:
             result = fut.result()
         except Exception as e:  # noqa: BLE001 — recorded; the run goes on
@@ -210,7 +220,7 @@ class DetectRunner:
             cb.emit("message", f"detection failed for {path}: {e!r}")
             self._advance(cb, report, total)
             return
-        with self.timers.time("persist"):
+        with recording(self.timers, index), self.timers.time("persist"):
             report.rows_added += self.store.append_intervals(path, result.intervals)
             self.store.save()  # per-file checkpoint (worker.py:128)
             self.store.mark_processed(path)

@@ -87,7 +87,7 @@ def main(argv=None):
                   f"main-thread accounted={acct:.3f}s "
                   f"unaccounted={wall - acct:.3f}s", flush=True)
             for k in STAGES:
-                n = timers.counts.get(k, 0)
+                n = timers.calls.get(k, 0)
                 v = tot.get(k, 0.0)
                 print(f"    {k:13s} {v * 1e3:9.1f} ms  n={n:3d}  "
                       f"{v / max(n, 1) * 1e3:7.1f} ms/call", flush=True)
