@@ -160,8 +160,12 @@ class Detector:
 
         self.fast = eng.precision != "parity"
         self.dtype = torch.bfloat16 if self.fast else torch.float32
-        self.model = build_model(state_dict, folded=fold).to(
-            device=self.device, dtype=self.dtype)
+        model = build_model(state_dict, folded=fold)
+        if self.fast and fold and self.device.type == "cuda":
+            # the channels-last plan (models/unet.py), derived in float32;
+            # deep copies (parallel.MeshDetector's replicas) carry it
+            model.prepare_nhwc()
+        self.model = model.to(device=self.device, dtype=self.dtype)
 
         mp = eng.mel_precision
         if mp == "auto":

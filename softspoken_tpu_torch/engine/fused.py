@@ -312,7 +312,8 @@ class FusedStreamingEngine:
         wait_prepare, dispatch (the chunk program's spans inside),
         checkpoint, readahead_join, final_fetch (device_wait, then fetch) and
         regions here; and counts chunks, batches, windows_live (real windows)
-        and windows_launched (``chunk_w`` a chunk).
+        and windows_launched (``chunk_w`` a chunk); the model counts
+        batches_nhwc (the batches of its channels-last path).
         """
         key = current_key()
         with recording(timers, key):

@@ -89,7 +89,8 @@ class _ShardedForward:
     def __init__(self, detector, mesh: Mesh):
         self.det = detector
         self.devices = mesh.axis_devices("data")
-        # one replica per entry, even where a device repeats
+        # one replica per entry, even where a device repeats; each carries
+        # the detector's channels-last plan (models/unet.py), as it lies
         self.models = [copy.deepcopy(detector.model).to(d) for d in self.devices]
 
     def __call__(self, wave: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:

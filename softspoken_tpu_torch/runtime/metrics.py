@@ -131,7 +131,11 @@ class StageTimers:
     ``time(name)`` is a span (``Span``): its seconds add to ``totals[name]``
     and one to ``calls[name]``.  ``count(name, n)`` adds to ``counters``.
     ``summary()`` is one flat dict: each span's seconds under its name and
-    each counter under ``count.<name>``."""
+    each counter under ``count.<name>``.  The detect path counts
+    ``chunks``, ``batches``, ``windows_live`` and ``windows_launched``
+    (``engine/fused.py``) and ``batches_nhwc``, the U-Net batches that ran
+    the channels-last fused path (``models/unet.py``): on the card in fast
+    mode every batch, elsewhere none."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)

@@ -601,3 +601,88 @@ def test_adpcm_kernel_on_the_last_card():
 
     dev, (got, ref) = _on_the_last_card_from_a_cuda0_thread(run)
     assert got.device == dev and torch.equal(got, ref)
+
+
+def _seeded_mel_batch(det, seed=11, B=128):
+    """K1's bf16 log-mel of B windows of a seeded field recording."""
+    rng = np.random.default_rng(seed)
+    n = (B - 1) * det.cfg.samples_per_step + det.cfg.samples_per_window
+    t = np.arange(n) / 32000
+    x = 0.02 * rng.standard_normal(n) + 0.3 * np.sin(2 * np.pi * 700 * t) * (
+        np.sin(2 * np.pi * 0.2 * t) > 0)
+    wave = torch.from_numpy(x.astype(np.float32)).cuda()
+    starts = torch.arange(B, dtype=torch.int32, device="cuda") * det.cfg.samples_per_step
+    with torch.inference_mode():
+        return fm.log_mel_windows_fused(wave, starts, "default", out_dtype=torch.bfloat16)
+
+
+def test_nhwc_mask_logits_on_the_card_agree_with_float32():
+    """The channels-last fused forward (the fast detector's) against the
+    float32 NCHW forward with TF32 off, on the trained weights at B = 128:
+    its relative L2 error is at most 1.5× that of the NCHW bfloat16 forward
+    of the same model, measured here; the spec head agrees as well."""
+    _need_card()
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+
+    det = Detector(Config())
+    model = det.model
+    ref = Detector(Config().with_engine(precision="parity")).model
+    assert model.conv1_1.nhwc_ready and not ref.conv1_1.nhwc_ready
+    mel = _seeded_mel_batch(det)
+    with torch.inference_mode():
+        with melops.fp32_matmul():
+            want_spec, want = ref(mel.float())
+        got = model.mask_logits(mel)
+        nchw = model._mask_head(model._trunk(mel))
+        spec, mask = model(mel)
+
+    def rel(a, b):
+        return float((a.float() - b).norm() / b.norm())
+
+    assert got.shape == (128, 256) and got.dtype == torch.float32
+    assert rel(got, want) <= 1.5 * rel(nchw, want)
+    assert torch.equal(mask, got)
+    assert spec.shape == (128, 2, 128, 256) and spec.is_contiguous()
+    assert rel(spec, want_spec) <= 0.02
+
+
+def test_nhwc_forward_has_no_layout_transposes():
+    """One profiled fast forward runs no cuDNN NCHW↔NHWC transpose."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+
+    det = Detector(Config())
+    mel = _seeded_mel_batch(det)
+    with torch.inference_mode():
+        det.model.mask_logits(mel)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            det.model.mask_logits(mel)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("fprop" in n or "conv" in n.lower() for n in names), names
+    assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n]
+
+
+def test_batches_nhwc_counts_every_fused_batch_on_the_card(tmp_path):
+    """``count.batches_nhwc`` equals ``count.batches`` in a fast detect on
+    the card, and is absent in parity mode."""
+    _need_card()
+    from softspoken_tpu_torch import Config
+    from softspoken_tpu_torch.engine import Detector
+    from softspoken_tpu_torch.runtime.metrics import StageTimers
+
+    p = str(tmp_path / "c.wav")
+    _field_wav(p, 40.0, 32000, seed=4)
+    for precision in ("fast", "parity"):
+        det = Detector(Config().with_engine(precision=precision, device_batch=32,
+                                            chunk_seconds=15.0))
+        timers = StageTimers()
+        det.detect_file_streaming(p, timers=timers)
+        counted = timers.counted()
+        assert counted["batches"] >= 2
+        assert counted.get("batches_nhwc", 0) == (counted["batches"] if precision == "fast" else 0)
