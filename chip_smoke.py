@@ -18,10 +18,14 @@ Phases:
      three modes) with the achieved TFLOP/s: K1 frame_mel (fused path), K2
      dft_mel (host path, mel_kernel="pallas"), K3 adpcm_decode (the adpcm4
      wire) bit-equal on adversarial wires and tails ending inside a lane,
-     with one block's device latency, and dw_silu (the Conformer's
+     with one block's device latency, dw_silu (the Conformer's
      depthwise convolution, bias and SiLU) within twice its bfloat16
-     rounding of the float64 function.  Each kernel's device time is read
-     on the card (torch.profiler's CUDA events, and a CUDA graph of 10
+     rounding of the float64 function, and bn_train (training-mode
+     BatchNorm's forward and backward) against its plain twin at the
+     step's full-resolution shape, timed each way beside the plain twin
+     and cuDNN's ``F.batch_norm``, then all 36 training-mode BatchNorms of
+     a B = 128 step against the plain twin.  Each kernel's device time is
+     read on the card (torch.profiler's CUDA events, and a CUDA graph of 10
      launches timed with events: ``device_time``) beside the time per call
      through its Python wrapper; ``ms`` in the JSON line is the device time
   3. the fused path: ``detect`` on a 30-minute 32 kHz PCM16 WAV in fast
@@ -37,8 +41,9 @@ Phases:
      warm-up outer call and 5 timed (3 in bfloat16), with steps/s, clips/s,
      the first call's seconds, peak memory and the losses; one step card ==
      CPU (float32 pinned, dropout off); K1 and K2 launch counts 0 over all
-     of that; the checkpoint in ``Detector`` on the card on the 60 s WAV;
-     a torch.profiler breakdown of one outer call
+     of that, bn_train's 36 forward and 36 backward launches a float32
+     step and none a bfloat16 one; the checkpoint in ``Detector`` on the
+     card on the 60 s WAV; a torch.profiler breakdown of one outer call
   6. slice 6, after the WAVs are written (native, before phase 3) and
      after training (the rest):
      native — both g++ libraries (csrc/ssdsp.cpp, csrc/ssflac.cpp, one g++
@@ -255,12 +260,14 @@ TOL_BF16 = 2.0 ** -6
 # dft_mel (K2) against its plain version: float32 (TF32 off) against the
 # six-pass split, as "highest" above
 TOL_DFT_MEL = 1e-4
-KERNELS = ("frame_mel", "dft_mel", "adpcm_decode", "dw_silu")
+KERNELS = ("frame_mel", "dft_mel", "adpcm_decode", "dw_silu", "bn_train")
+MEL_KERNELS = ("frame_mel", "dft_mel")
 TENSOR_CORE_KERNELS = ("frame_mel", "dft_mel")  # K3 is integer work: none claimed
 WARP_SCAN_KERNELS = ("adpcm_decode",)  # K3's design is a warp scan: SHFL in its SASS
 # a substring of each kernel's name in the profiler's CUDA events
 KERNEL_SYMBOLS = {"frame_mel": "WindowLoader", "dft_mel": "RowLoader",
-                  "adpcm_decode": "adpcm_decode_kernel", "dw_silu": "dw_silu_kernel"}
+                  "adpcm_decode": "adpcm_decode_kernel", "dw_silu": "dw_silu_kernel",
+                  "bn_train": "bn_train_"}
 MEL_PASSES = 6  # the mel product is the six-pass bf16 split in every mode
 
 
@@ -389,6 +396,28 @@ def device_time(fn, symbol: str, launches: int = 20, per_graph: int = 10,
     profiler_ms = 1e-3 * float(np.mean(us)) if us else None
     return {"ms": profiler_ms if profiler_ms else graph_ms, "profiler_ms": profiler_ms,
             "profiler_events": len(us), "graph_ms": graph_ms}
+
+
+def kernel_device_ms(run, calls: int = 1) -> float:
+    """The device time of every kernel one call of ``run`` launches: the
+    sum of torch.profiler's CUDA events over ``calls`` calls, after two
+    warm-up calls, divided by ``calls``.  For a call that launches several
+    kernels, or whose host enqueue is as long as its kernels (CUDA events
+    around it would time the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not us:
+        raise RuntimeError("torch.profiler recorded no CUDA event")
+    return 1e-3 * sum(us) / calls
 
 
 def device_text(d: dict) -> str:
@@ -781,6 +810,152 @@ def phase_dw_silu(peaks, smi: str) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": plain_ms, "tensor_cores": False}
+
+
+def bn_train_shapes(batch: int = 128) -> list:
+    """The input shape of each training-mode BatchNorm of the U-Net at
+    ``batch`` rows, in the order a step runs them, read by forward
+    pre-hooks from one forward of a single row on the CPU (the spatial
+    sizes do not depend on the batch)."""
+    from softspoken_tpu_torch.models.unet import N_MELS, BatchNorm1d, BatchNorm2d, SpecUNet2D
+
+    model = SpecUNet2D().eval()
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+                 lambda _m, args: shapes.append((batch,) + tuple(args[0].shape[1:])))
+             for m in model.modules() if isinstance(m, (BatchNorm1d, BatchNorm2d))]
+    with torch.no_grad():
+        model(torch.zeros(1, N_MELS, 256))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def _bn_inputs(shape, seed: int) -> dict:
+    """As the BatchNorm tests: a channel offset larger than the spread."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[1]
+    bshape = (1, C) + (1,) * (len(shape) - 2)
+    return {"x": 0.5 * torch.randn(shape, generator=g, device="cuda")
+            + 3.0 * torch.randn(C, generator=g, device="cuda").view(bshape),
+            "w": 0.5 + torch.rand(C, generator=g, device="cuda"),
+            "b": 0.1 * torch.randn(C, generator=g, device="cuda"),
+            "rm": torch.zeros(C, device="cuda"), "rv": torch.ones(C, device="cuda"),
+            "nbt": torch.zeros((), dtype=torch.int64, device="cuda"),
+            "dy": torch.randn(shape, generator=g, device="cuda")}
+
+
+def phase_bn_train(peaks, smi: str) -> dict:
+    """Training-mode BatchNorm's kernel pair (``ops/batchnorm.py``,
+    ``csrc/bn_train.cu``) at every shape a B = 128 training step gives it:
+    the input of each of the step's 36 BatchNorms (``bn_train_shapes``),
+    the output and the three gradients against the plain twin on the same
+    inputs (within 1e-5 of each tensor's largest value; the precise check
+    is tests/test_torch_batchnorm_cuda.py).  Then at the full-resolution
+    shape (128, 32, 128, 256) each direction's device time (its three
+    kernels summed, 20 calls) beside its bound (the forward reads x twice
+    and writes y, the backward reads x and dy twice and writes dx: bytes /
+    3.35 TB/s), the plain twin's time and cuDNN's ``F.batch_norm`` alone
+    (``library_ms``, a yardstick the port never calls; its backward is the
+    plain twin's).  Then the 36 BatchNorms, both directions, kernel against
+    plain twin.  Every device time is ``kernel_device_ms``: the 36's host
+    enqueue is as long as their kernels' device time, so events around it
+    would time the host."""
+    import torch.nn.functional as F
+
+    from softspoken_tpu_torch.models.unet import BN_EPS, BN_MOMENTUM
+    from softspoken_tpu_torch.ops import KERNEL_LAUNCHES
+    from softspoken_tpu_torch.ops import batchnorm as bnops
+
+    def both(fn, t):
+        xr, wr, br = (t[k].detach().clone().requires_grad_() for k in ("x", "w", "b"))
+        y = fn(xr, wr, br, t["rm"].clone(), t["rv"].clone(), t["nbt"].clone(), BN_EPS,
+               BN_MOMENTUM)
+        y.backward(t["dy"])
+        return y.detach(), xr.grad, wr.grad, br.grad
+
+    shapes = bn_train_shapes()
+    if len(shapes) != 36:
+        raise AssertionError(f"the U-Net has {len(shapes)} BatchNorms, not 36")
+    cases = [_bn_inputs(s, seed=i) for i, s in enumerate(shapes)]
+    worst = {}
+    for i, t in enumerate(cases):
+        before = KERNEL_LAUNCHES["bn_train_fwd"], KERNEL_LAUNCHES["bn_train_bwd"]
+        got = both(bnops.batch_norm_train, t)
+        torch.cuda.synchronize()
+        if (KERNEL_LAUNCHES["bn_train_fwd"], KERNEL_LAUNCHES["bn_train_bwd"]) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError(f"bn_train did not launch its kernels once each way at "
+                                 f"{shapes[i]}")
+        want = both(bnops.batch_norm_train_plain, t)
+        errs = {name: float((a - e).abs().max() / e.abs().max())
+                for name, a, e in zip(("y", "dx", "dw", "db"), got, want)}
+        if not max(errs.values()) <= 1e-5:
+            raise AssertionError(f"bn_train disagrees with its plain twin at {shapes[i]}: "
+                                 f"{errs}")
+        prev = worst.get(shapes[i], {})
+        worst[shapes[i]] = {k: max(v, prev.get(k, 0.0)) for k, v in errs.items()}
+        del got, want
+    for s, errs in worst.items():
+        log(f"bn_train {s} vs plain twin, max error / max value: "
+            + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
+    max_err = max(max(e.values()) for e in worst.values())
+
+    shape = (128, 32, 128, 256)
+    t = cases[shapes.index(shape)]
+    x, w, b, dy = t["x"].detach(), t["w"].detach(), t["b"].detach(), t["dy"]
+    args = (t["rm"], t["rv"], t["nbt"], BN_EPS, BN_MOMENTUM)
+    elem_bytes = 4 * x.numel()
+    y, mean, rstd = bnops.forward_kernel(x, w, b, *args)
+    fwd = lambda: bnops.forward_kernel(x, w, b, *args)  # noqa: E731
+    bwd = lambda: bnops.backward_kernel(x, dy, w, mean, rstd)  # noqa: E731
+    xr, wr, br = (v.clone().requires_grad_() for v in (x, w, b))
+    yp = bnops.batch_norm_train_plain(xr, wr, br, *args)
+    plain_f = lambda: bnops.batch_norm_train_plain(x, w, b, *args)  # noqa: E731
+    plain_b = lambda: torch.autograd.grad(yp, (xr, wr, br), dy, retain_graph=True)  # noqa: E731
+    lib_f = lambda: F.batch_norm(x, None, None, w, b, True, 0.0, BN_EPS)  # noqa: E731
+    recs = {}
+    for name, fn, passes, plain, lib in (("forward", fwd, 3, plain_f, lib_f),
+                                         ("backward", bwd, 5, plain_b, plain_b)):
+        ms = kernel_device_ms(fn, calls=20)
+        bound_ms = 1e3 * passes * elem_bytes / peaks["bytes"]
+        call_ms = cuda_time_ms(fn)
+        plain_ms = cuda_time_ms(plain, warmup=2, iters=10, reps=3)
+        lib_ms = plain_ms if lib is plain else cuda_time_ms(lib, warmup=2, iters=10, reps=3)
+        log(f"bn_train {name} {shape} fp32: device_ms={ms:.5f} (profiler, 20 calls) = "
+            f"{100 * bound_ms / ms:.1f}% of bound ({passes} passes of "
+            f"{elem_bytes / 1e6:.1f} MB: bound_ms={bound_ms:.4f}, "
+            f"{passes * elem_bytes / ms / 1e9:.3f} TB/s); call_ms={call_ms:.4f}; "
+            f"plain {plain_ms:.4f} ms; library (cuDNN F.batch_norm) {lib_ms:.4f} ms | {smi}")
+        recs[name] = {"ms": ms, "call_ms": call_ms, "bound_ms": bound_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms}
+    del y, yp, xr, wr, br, t, x, dy
+
+    def step_all(fn):
+        def run():
+            for c in cases:
+                xr, wr, br = (c[k].requires_grad_() for k in ("x", "w", "b"))
+                y = fn(xr, wr, br, c["rm"], c["rv"], c["nbt"], BN_EPS, BN_MOMENTUM)
+                torch.autograd.grad(y, (xr, wr, br), c["dy"])
+        return run
+
+    step_kernel = kernel_device_ms(step_all(bnops.batch_norm_train))
+    step_plain = kernel_device_ms(step_all(bnops.batch_norm_train_plain))
+    n_elem = sum(c["x"].numel() for c in cases)
+    step_bound = 1e3 * 8 * 4 * n_elem / peaks["bytes"]
+    log(f"bn_train all 36 BatchNorms of a B=128 step, forward + backward: kernel "
+        f"{step_kernel:.3f} ms, plain twin {step_plain:.3f} ms, bound {step_bound:.3f} ms "
+        f"(8 passes of {4 * n_elem / 1e9:.3f} GB; kernel at "
+        f"{100 * step_bound / step_kernel:.1f}%) | {smi}")
+    return {"name": "bn_train", "route": "cuda", "source": "softspoken_tpu_torch/csrc/bn_train.cu",
+            "replaces": "none (Flax BatchNorm was left to XLA)", "launches": None,
+            "max_abs_err": max_err, "ms": recs["forward"]["ms"] + recs["backward"]["ms"],
+            "forward": recs["forward"], "backward": recs["backward"],
+            "bound_ms": recs["forward"]["bound_ms"] + recs["backward"]["bound_ms"],
+            "bound_by": "bytes", "plain_ms": recs["forward"]["plain_ms"] + recs["backward"]["plain_ms"],
+            "library_ms": recs["forward"]["library_ms"] + recs["backward"]["library_ms"],
+            "step_ms": step_kernel, "step_plain_ms": step_plain, "step_bound_ms": step_bound,
+            "tensor_cores": False}
 
 
 def _field_signal(seconds: float, sr: int, seed: int) -> np.ndarray:
@@ -1213,8 +1388,14 @@ def phase_train(work: str, wav: str, smi: str) -> None:
     torch.cuda.synchronize()
     launches = dict(KERNEL_LAUNCHES)
     log("kernel launches over the training phase:", json.dumps(launches))
-    if any(launches.get(k, 0) for k in KERNELS):
+    if any(launches.get(k, 0) for k in MEL_KERNELS):
         raise AssertionError("the training path launched a mel kernel")
+    # 60 float32 steps of fit_synthetic and the card's step of the parity
+    # check, 36 training-mode BatchNorms each; the 40 bfloat16 steps none
+    bn = launches.get("bn_train_fwd", 0), launches.get("bn_train_bwd", 0)
+    if bn != (36 * 61, 36 * 61):
+        raise AssertionError(f"bn_train launches over the training phase {bn}, "
+                             f"not {36 * 61} each way")
 
     det = Detector(checkpoint_path=f32["path"])
     res = det.detect_file_streaming(wav)
@@ -4189,7 +4370,8 @@ def main() -> int:
     k2 = phase_dft_mel(peaks)
     k3 = phase_adpcm(peaks, smi)
     dw = phase_dw_silu(peaks, smi)
-    for rec in (k1, k2, k3, dw):
+    bn = phase_bn_train(peaks, smi)
+    for rec in (k1, k2, k3, dw, bn):
         rec.update(tc[rec["name"]])
         if rec["tensor_cores"] and not rec["tensor_core_instructions"]:
             raise AssertionError(f"{rec['name']} claims the tensor cores but its SASS shows none")
@@ -4248,7 +4430,7 @@ def main() -> int:
                                       for fmt, n in codec_launches.items()}
         os.remove(wav)
         os.remove(wav60)
-    return finish(t0, [k1, k2, k3, dw], smi)
+    return finish(t0, [k1, k2, k3, dw, bn], smi)
 
 
 def finish(t0: float, recs: list, smi: str) -> int:

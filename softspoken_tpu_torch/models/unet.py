@@ -39,7 +39,10 @@ Training mode (``model.train()``) follows the JAX package's Flax module
     **biased** batch variance (``torch.nn.BatchNorm`` would update with the
     unbiased one, ×n/(n−1), and every trained checkpoint's running variances
     would drift from the JAX trainer's).  The statistics and the
-    normalization run in float32 at least, whatever the input type.
+    normalization run in float32 at least, whatever the input type.  A
+    contiguous float32 input on the card goes through the CUDA kernel pair
+    ``ops/batchnorm.py::batch_norm_train``; every other input (the CPU, the
+    bfloat16 step) through its plain twin ``batch_norm_train_plain``.
   * Dropout2d (p = 0.1) after the add+ReLU of every 2-D block drops whole
     channel maps; the 1-D mask block drops whole channels over time.  The
     masks come from the ``generator`` passed to ``forward``.
@@ -65,6 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import batchnorm
 from ..runtime.metrics import count
 
 BN_EPS = 1e-5
@@ -98,17 +102,15 @@ class _TrainStatsBN:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        dims = [0] + list(range(2, x.dim()))
         if self.shard is not None:
-            return self._sharded_forward(x, dims)
-        with torch.no_grad():
-            stat_t = torch.promote_types(x.dtype, torch.float32)
-            var, mean = torch.var_mean(x.to(stat_t), dim=dims, correction=0)
-            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
-            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
-            self.num_batches_tracked.add_(1)
-        # batch statistics, biased variance, float32 arithmetic
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            return self._sharded_forward(x, [0] + list(range(2, x.dim())))
+        # batch statistics, biased variance, float32 arithmetic: the CUDA
+        # kernel pair for what it takes (a contiguous float32 CUDA input),
+        # else the same function in plain torch
+        bn = (batchnorm.batch_norm_train if batchnorm.runs_kernel(x)
+              else batchnorm.batch_norm_train_plain)
+        return bn(x, self.weight, self.bias, self.running_mean, self.running_var,
+                  self.num_batches_tracked, self.eps, BN_MOMENTUM)
 
     def _sharded_forward(self, x: torch.Tensor, dims) -> torch.Tensor:
         """The same normalization with statistics over every rank's shard
