@@ -1,7 +1,8 @@
-"""The JAX package's quality on the eval phase's four conditions.
+"""The JAX package's quality on the card's four eval conditions.
 
-Computes, with the JAX package on the CPU, what ``chip_smoke.py``'s
-``eval`` phase measures on the card with the port: for each condition of
+Computes, with the JAX package on the CPU, what
+tests/test_torch_quality_cuda.py::test_eval_condition_holds_the_jax_cpu_quality
+measures on the card with the port: for each condition of
 ``scripts/quality_grid.py`` listed in ``CONDITIONS`` (its seed is ``7000 +``
 the condition's index there), 8 files x 120 s at 32 kHz from
 ``make_eval_set``, detected with the trained checkpoint in fast mode with
@@ -12,8 +13,8 @@ threshold (as ``postfilter_parity_metrics`` applies it).
 
     JAX_PLATFORMS=cpu python tests/jax_eval_reference.py [v1_clean ...]
 
-prints one JSON line per condition; ``chip_smoke.py`` carries the F1
-values as its gate's reference.  Any other tag of the grid (``v2_snr5``,
+prints one JSON line per condition; that test carries the F1 values as its
+reference (``EVAL_REFERENCE``).  Any other tag of the grid (``v2_snr5``,
 ``v1_fading``, ...) is computed the same way, with its own seed.
 """
 

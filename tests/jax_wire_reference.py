@@ -1,18 +1,19 @@
-"""The JAX package's quality on the wires phase's labeled fields.
+"""The JAX package's quality under each wire on the card's labeled fields.
 
-Computes, with the JAX package on the CPU, what ``chip_smoke.py``'s
-``wires`` phase measures on the card with the port: the 8 labeled 120 s
-fields at 32 kHz of its ``trained`` phase (``synth_field_recording`` with
+Computes, with the JAX package on the CPU, what
+tests/test_torch_quality_cuda.py::test_each_wire_holds_the_jax_cpu_quality
+measures on the card with the port: the 8 labeled 120 s fields at 32 kHz
+of that module's ``fields`` (``synth_field_recording`` with
 ``np.random.default_rng(seed)``, seeds 0-7, written as PCM16 WAVs),
 detected with the trained checkpoint in fast mode with
 ``mel_precision="highest"`` through the fused pipeline under each upload
 wire of ``WIRES``, and scored with frame and event F1 (IoU 0.5) against
-their labels, as the ``trained`` phase scores them.
+their labels, as that module scores them.
 
     JAX_PLATFORMS=cpu python tests/jax_wire_reference.py [pcm16 ...]
 
-prints one JSON line per wire; ``chip_smoke.py`` carries the means as its
-gate's reference (``WIRE_REFERENCE``).
+prints one JSON line per wire; that test carries the means as its
+reference (``WIRE_REFERENCE``).
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@ from the root bench.py, not typed in here) plus ``device``; ``bench
 --seconds`` and ``BENCH_SECONDS`` follow the JAX CLI's precedence; the
 ``bench`` and ``gui`` parsers take the JAX options plus ``--device``."""
 
+import ast
 import json
 import os
 import subprocess
@@ -12,11 +13,29 @@ import sys
 import pytest
 import torch
 
-from chip_smoke import bench_payload_keys
-from softspoken_tpu import cli as jcli
 from softspoken_tpu_torch import bench, cli
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def bench_payload_keys(path: str) -> "tuple[set, set]":
+    """A bench script's JSON keys, read from its source (not imported):
+    those of the dicts given to ``payload.update`` (every run prints them)
+    and those assigned as ``payload[...]`` (printed when their phase runs).
+    The card's bench test (tests/test_torch_cuda.py) reads them here too, so
+    this module imports the JAX package only inside the tests that use it."""
+    always, assigned = set(), set()
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "update" and getattr(node.func.value, "id", "") == "payload"):
+            always |= {k.value for k in node.args[0].keys}
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Subscript) and getattr(t.value, "id", "") == "payload":
+                    assigned.add(t.slice.value)
+    return always, assigned
 
 
 JAX_ALWAYS, JAX_ASSIGNED = bench_payload_keys(os.path.join(ROOT, "bench.py"))
@@ -93,6 +112,8 @@ def _sub(parser):
 
 @pytest.mark.parametrize("command", ["bench", "gui"])
 def test_parsers_take_the_jax_options_and_device(command):
+    from softspoken_tpu import cli as jcli
+
     ours = {s for a in _sub(cli.build_parser()).choices[command]._actions
             for s in a.option_strings}
     theirs = {s for a in _sub(jcli.build_parser()).choices[command]._actions
@@ -101,5 +122,7 @@ def test_parsers_take_the_jax_options_and_device(command):
 
 
 def test_the_port_has_every_jax_command_but_convert_ckpt():
+    from softspoken_tpu import cli as jcli
+
     ours, theirs = set(_sub(cli.build_parser()).choices), set(_sub(jcli.build_parser()).choices)
     assert theirs - ours == {"convert-ckpt"} and ours <= theirs

@@ -75,17 +75,20 @@ def test_load_config_takes_the_new_flags():
                                    ["--coordinator", "localhost:1"],
                                    ["--num-processes", "2"], ["--process-id", "0"]],
                          ids=lambda f: f[0])
-def test_multi_gpu_flags_raise_naming_multi_gpu(tmp_path, flags, capsys):
+def test_each_multi_gpu_flag_alone_writes_the_plain_csv(tmp_path, flags, capsys):
     """Each of the five flags alone now runs, as in the JAX CLI: ``--mesh``
     on a CPU detector shards over a one-entry CPU mesh, ``--distributed``
     with no cluster is a single process (the main store), and the other
     three apply only with ``--distributed``; each CSV equals a plain
-    run's."""
+    run's.  Both runs of a case use the tiny shape (B = 8, 4.8 s chunks)."""
     rng = np.random.default_rng(2)
     wav = str(tmp_path / "x.wav")
     jwavio.write(wav, rng.uniform(-0.4, 0.4, 5 * 22050).astype(np.float32), 22050,
                  subtype="PCM_16")
-    base = ["detect", "--files", wav, "--device", "cpu", "--random-init"]
+    conf = tmp_path / "tiny.json"
+    conf.write_text(json.dumps({"engine": {"chunk_seconds": 4.8}}))
+    base = ["detect", "--files", wav, "--device", "cpu", "--random-init", "--device-batch", "8",
+            "--config", str(conf)]
     assert cli.main([*base, "--out", str(tmp_path / "plain.csv")]) == 0
     assert cli.main([*base, "--out", str(tmp_path / "flag.csv"), *flags]) == 0
     out = capsys.readouterr().out
@@ -132,7 +135,7 @@ def test_log_json_lines_parse(tmp_path):
 
 def test_doctor_reports_the_missing_card_as_an_error(tmp_path):
     if torch.cuda.is_available():
-        pytest.skip("a card is present: chip_smoke.py holds doctor there")
+        pytest.skip("a card is present: tests/test_torch_cuda.py holds doctor there")
     r = _run("doctor", "--device-timeout", "5", cwd=str(tmp_path))
     assert r.returncode == 1
     report = json.loads(r.stdout)

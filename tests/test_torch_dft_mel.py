@@ -2,8 +2,8 @@
 the port's plain version on the CPU against the JAX package's Pallas kernel
 in interpret mode, at the tolerances of tests/test_pallas_mel.py (rtol 2e-4,
 atol 1e-5: float32 on both sides, other summation orders).  The CUDA kernel
-itself is held to this plain version on the card (test_torch_cuda.py,
-chip_smoke.py)."""
+itself is held to this plain version on the card (test_torch_cuda.py;
+chip_smoke.py's kernel table)."""
 
 import jax.numpy as jnp
 import numpy as np
