@@ -19,10 +19,11 @@ Phases:
      tails ending inside a lane, with one block's device latency, dw_silu
      (the Conformer's depthwise convolution, bias and SiLU) within twice
      its bfloat16 rounding of the float64 function, and bn_train
-     (training-mode BatchNorm's forward and backward) against its plain
-     twin at the input of each of a B = 128 step's 36 BatchNorms, timed at
-     the full-resolution shape each way beside the plain twin and cuDNN's
-     ``F.batch_norm``, then all 36 of a step.  Each kernel's device time is
+     (training-mode BatchNorm's forward and backward, contiguous and
+     channels-last) against its plain twin at the input of each of a
+     B = 128 step's 36 BatchNorms, timed at the full-resolution shape each
+     way in each layout beside the plain twin and cuDNN's ``F.batch_norm``,
+     then all 36 of a step.  Each kernel's device time is
      read on the card (torch.profiler's CUDA events, and a CUDA graph of 10
      launches timed with events: ``device_time``) beside the time per call
      through its Python wrapper; ``ms`` in the JSON line is the device time.
@@ -631,23 +632,28 @@ def phase_bn_train(peaks, smi: str) -> dict:
     """Training-mode BatchNorm's kernel pair (``ops/batchnorm.py``,
     ``csrc/bn_train.cu``) at every shape a B = 128 training step gives it:
     the input of each of the step's 36 BatchNorms (``bn_train_shapes``),
-    the output and the three gradients against the plain twin on the same
-    inputs (within 1e-5 of each tensor's largest value; the precise check
-    is tests/test_torch_batchnorm_cuda.py).  Then at the full-resolution
-    shape (128, 32, 128, 256) each direction's device time (its three
-    kernels summed, 20 calls) beside its bound (the forward reads x twice
-    and writes y, the backward reads x and dy twice and writes dx: bytes /
-    3.35 TB/s), the plain twin's time and cuDNN's ``F.batch_norm`` alone
-    (``library_ms``, a yardstick the port never calls; its backward is the
-    plain twin's).  Then the 36 BatchNorms, both directions, kernel against
-    plain twin.  Every device time is ``kernel_device_ms``: the 36's host
-    enqueue is as long as their kernels' device time, so events around it
-    would time the host."""
+    contiguous and, for the 33 two-D ones, channels-last as well (the
+    float32 step's layout on the card); the output and the three gradients
+    against the plain twin on the same inputs (within 1e-5 of each tensor's
+    largest value; the precise check is tests/test_torch_batchnorm_cuda.py).
+    Then at the full-resolution shape (128, 32, 128, 256), in each layout,
+    each direction's device time (its three kernels summed, 20 calls)
+    beside its bound (the forward reads x twice and writes y, the backward
+    reads x and dy twice and writes dx: bytes / 3.35 TB/s), the plain
+    twin's time and cuDNN's ``F.batch_norm`` alone (``library_ms``, a
+    yardstick the port never calls; its backward is the plain twin's).
+    Then the 36 BatchNorms, both directions: contiguous, as the float32
+    step's layout (33 channels-last), and the plain twin.  Every device
+    time is ``kernel_device_ms``: the 36's host enqueue is as long as their
+    kernels' device time, so events around it would time the host."""
     import torch.nn.functional as F
 
     from softspoken_tpu_torch.models.unet import BN_EPS, BN_MOMENTUM
     from softspoken_tpu_torch.ops import KERNEL_LAUNCHES
     from softspoken_tpu_torch.ops import batchnorm as bnops
+
+    cl = torch.channels_last
+    counters = ("bn_train_fwd", "bn_train_bwd", "bn_train_fwd_nhwc", "bn_train_bwd_nhwc")
 
     def both(fn, t):
         xr, wr, br = (t[k].detach().clone().requires_grad_() for k in ("x", "w", "b"))
@@ -656,88 +662,104 @@ def phase_bn_train(peaks, smi: str) -> dict:
         y.backward(t["dy"])
         return y.detach(), xr.grad, wr.grad, br.grad
 
+    def channels_last(t):
+        return dict(t, x=t["x"].contiguous(memory_format=cl),
+                    dy=t["dy"].contiguous(memory_format=cl))
+
     shapes = bn_train_shapes()
     if len(shapes) != 36:
         raise AssertionError(f"the U-Net has {len(shapes)} BatchNorms, not 36")
     cases = [_bn_inputs(s, seed=i) for i, s in enumerate(shapes)]
     worst = {}
     for i, t in enumerate(cases):
-        before = KERNEL_LAUNCHES["bn_train_fwd"], KERNEL_LAUNCHES["bn_train_bwd"]
-        got = both(bnops.batch_norm_train, t)
-        torch.cuda.synchronize()
-        if (KERNEL_LAUNCHES["bn_train_fwd"], KERNEL_LAUNCHES["bn_train_bwd"]) != (
-                before[0] + 1, before[1] + 1):
-            raise AssertionError(f"bn_train did not launch its kernels once each way at "
-                                 f"{shapes[i]}")
-        want = both(bnops.batch_norm_train_plain, t)
-        errs = {name: float((a - e).abs().max() / e.abs().max())
-                for name, a, e in zip(("y", "dx", "dw", "db"), got, want)}
-        if not max(errs.values()) <= 1e-5:
-            raise AssertionError(f"bn_train disagrees with its plain twin at {shapes[i]}: "
-                                 f"{errs}")
-        prev = worst.get(shapes[i], {})
-        worst[shapes[i]] = {k: max(v, prev.get(k, 0.0)) for k, v in errs.items()}
-        del got, want
-    for s, errs in worst.items():
-        log(f"bn_train {s} vs plain twin, max error / max value: "
+        layouts = [("nchw", t)] + ([("nhwc", channels_last(t))] if len(shapes[i]) == 4 else [])
+        for layout, tl in layouts:
+            before = {k: KERNEL_LAUNCHES[k] for k in counters}
+            got = both(bnops.batch_norm_train, tl)
+            torch.cuda.synchronize()
+            nhwc = layout == "nhwc"
+            launched = {k: KERNEL_LAUNCHES[k] - before[k] for k in counters}
+            if launched != {"bn_train_fwd": 1, "bn_train_bwd": 1, "bn_train_fwd_nhwc": int(nhwc),
+                            "bn_train_bwd_nhwc": int(nhwc)}:
+                raise AssertionError(f"bn_train ({layout}) did not launch its kernels once each "
+                                     f"way at {shapes[i]}: {launched}")
+            want = both(bnops.batch_norm_train_plain, tl)
+            errs = {name: float((a - e).abs().max() / e.abs().max())
+                    for name, a, e in zip(("y", "dx", "dw", "db"), got, want)}
+            if not max(errs.values()) <= 1e-5:
+                raise AssertionError(f"bn_train ({layout}) disagrees with its plain twin at "
+                                     f"{shapes[i]}: {errs}")
+            key = (layout, shapes[i])
+            prev = worst.get(key, {})
+            worst[key] = {k: max(v, prev.get(k, 0.0)) for k, v in errs.items()}
+            del got, want
+    for (layout, s), errs in worst.items():
+        log(f"bn_train {layout} {s} vs plain twin, max error / max value: "
             + " ".join(f"{k}={v:.2e}" for k, v in errs.items()))
     max_err = max(max(e.values()) for e in worst.values())
 
     shape = (128, 32, 128, 256)
-    t = cases[shapes.index(shape)]
-    x, w, b, dy = t["x"].detach(), t["w"].detach(), t["b"].detach(), t["dy"]
-    args = (t["rm"], t["rv"], t["nbt"], BN_EPS, BN_MOMENTUM)
-    elem_bytes = 4 * x.numel()
-    y, mean, rstd = bnops.forward_kernel(x, w, b, *args)
-    fwd = lambda: bnops.forward_kernel(x, w, b, *args)  # noqa: E731
-    bwd = lambda: bnops.backward_kernel(x, dy, w, mean, rstd)  # noqa: E731
-    xr, wr, br = (v.clone().requires_grad_() for v in (x, w, b))
-    yp = bnops.batch_norm_train_plain(xr, wr, br, *args)
-    plain_f = lambda: bnops.batch_norm_train_plain(x, w, b, *args)  # noqa: E731
-    plain_b = lambda: torch.autograd.grad(yp, (xr, wr, br), dy, retain_graph=True)  # noqa: E731
-    lib_f = lambda: F.batch_norm(x, None, None, w, b, True, 0.0, BN_EPS)  # noqa: E731
     recs = {}
-    for name, fn, passes, plain, lib in (("forward", fwd, 3, plain_f, lib_f),
-                                         ("backward", bwd, 5, plain_b, plain_b)):
-        ms = kernel_device_ms(fn, calls=20)
-        bound_ms = 1e3 * passes * elem_bytes / peaks["bytes"]
-        call_ms = cuda_time_ms(fn)
-        plain_ms = cuda_time_ms(plain, warmup=2, iters=10, reps=3)
-        lib_ms = plain_ms if lib is plain else cuda_time_ms(lib, warmup=2, iters=10, reps=3)
-        log(f"bn_train {name} {shape} fp32: device_ms={ms:.5f} (profiler, 20 calls) = "
-            f"{100 * bound_ms / ms:.1f}% of bound ({passes} passes of "
-            f"{elem_bytes / 1e6:.1f} MB: bound_ms={bound_ms:.4f}, "
-            f"{passes * elem_bytes / ms / 1e9:.3f} TB/s); call_ms={call_ms:.4f}; "
-            f"plain {plain_ms:.4f} ms; library (cuDNN F.batch_norm) {lib_ms:.4f} ms | {smi}")
-        recs[name] = {"ms": ms, "call_ms": call_ms, "bound_ms": bound_ms,
-                      "plain_ms": plain_ms, "library_ms": lib_ms}
-    del y, yp, xr, wr, br, t, x, dy
+    for layout in ("nchw", "nhwc"):
+        t = cases[shapes.index(shape)]
+        if layout == "nhwc":
+            t = channels_last(t)
+        x, w, b, dy = t["x"].detach(), t["w"].detach(), t["b"].detach(), t["dy"]
+        args = (t["rm"], t["rv"], t["nbt"], BN_EPS, BN_MOMENTUM)
+        elem_bytes = 4 * x.numel()
+        y, mean, rstd = bnops.forward_kernel(x, w, b, *args)
+        fwd = lambda: bnops.forward_kernel(x, w, b, *args)  # noqa: E731
+        bwd = lambda: bnops.backward_kernel(x, dy, w, mean, rstd)  # noqa: E731
+        xr, wr, br = (v.clone().requires_grad_() for v in (x, w, b))
+        yp = bnops.batch_norm_train_plain(xr, wr, br, *args)
+        plain_f = lambda: bnops.batch_norm_train_plain(x, w, b, *args)  # noqa: E731
+        plain_b = lambda: torch.autograd.grad(yp, (xr, wr, br), dy, retain_graph=True)  # noqa: E731
+        lib_f = lambda: F.batch_norm(x, None, None, w, b, True, 0.0, BN_EPS)  # noqa: E731
+        for name, fn, passes, plain, lib in (("forward", fwd, 3, plain_f, lib_f),
+                                             ("backward", bwd, 5, plain_b, plain_b)):
+            ms = kernel_device_ms(fn, calls=20)
+            bound_ms = 1e3 * passes * elem_bytes / peaks["bytes"]
+            call_ms = cuda_time_ms(fn)
+            plain_ms = cuda_time_ms(plain, warmup=2, iters=10, reps=3)
+            lib_ms = plain_ms if lib is plain else cuda_time_ms(lib, warmup=2, iters=10, reps=3)
+            log(f"bn_train {layout} {name} {shape} fp32: device_ms={ms:.5f} (profiler, 20 calls) "
+                f"= {100 * bound_ms / ms:.1f}% of bound ({passes} passes of "
+                f"{elem_bytes / 1e6:.1f} MB: bound_ms={bound_ms:.4f}, "
+                f"{passes * elem_bytes / ms / 1e9:.3f} TB/s); call_ms={call_ms:.4f}; "
+                f"plain {plain_ms:.4f} ms; library (cuDNN F.batch_norm) {lib_ms:.4f} ms | {smi}")
+            recs[name if layout == "nchw" else f"{name}_nhwc"] = {
+                "ms": ms, "call_ms": call_ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms}
+        del y, yp, xr, wr, br, t, x, dy
 
-    def step_all(fn):
+    def step_all(fn, layouts):
         def run():
-            for c in cases:
+            for c in layouts:
                 xr, wr, br = (c[k].requires_grad_() for k in ("x", "w", "b"))
                 y = fn(xr, wr, br, c["rm"], c["rv"], c["nbt"], BN_EPS, BN_MOMENTUM)
                 torch.autograd.grad(y, (xr, wr, br), c["dy"])
         return run
 
-    step_kernel = kernel_device_ms(step_all(bnops.batch_norm_train))
-    step_plain = kernel_device_ms(step_all(bnops.batch_norm_train_plain))
+    step_cases = [channels_last(c) if len(s) == 4 else c for c, s in zip(cases, shapes)]
+    step_kernel = kernel_device_ms(step_all(bnops.batch_norm_train, cases))
+    step_nhwc = kernel_device_ms(step_all(bnops.batch_norm_train, step_cases))
+    step_plain = kernel_device_ms(step_all(bnops.batch_norm_train_plain, cases))
     n_elem = sum(c["x"].numel() for c in cases)
     step_bound = 1e3 * 8 * 4 * n_elem / peaks["bytes"]
     log(f"bn_train all 36 BatchNorms of a B=128 step, forward + backward: kernel "
-        f"{step_kernel:.3f} ms, plain twin {step_plain:.3f} ms, bound {step_bound:.3f} ms "
+        f"{step_kernel:.3f} ms contiguous, {step_nhwc:.3f} ms as the float32 step lays them "
+        f"out (33 channels-last), plain twin {step_plain:.3f} ms, bound {step_bound:.3f} ms "
         f"(8 passes of {4 * n_elem / 1e9:.3f} GB; kernel at "
-        f"{100 * step_bound / step_kernel:.1f}%) | {smi}")
+        f"{100 * step_bound / step_kernel:.1f}% / {100 * step_bound / step_nhwc:.1f}%) | {smi}")
     return {"name": "bn_train", "route": "cuda", "source": "softspoken_tpu_torch/csrc/bn_train.cu",
             "replaces": "none (Flax BatchNorm was left to XLA)",
             "max_abs_err": max_err, "ms": recs["forward"]["ms"] + recs["backward"]["ms"],
-            "forward": recs["forward"], "backward": recs["backward"],
+            **recs,
             "bound_ms": recs["forward"]["bound_ms"] + recs["backward"]["bound_ms"],
             "bound_by": "bytes", "plain_ms": recs["forward"]["plain_ms"] + recs["backward"]["plain_ms"],
             "library_ms": recs["forward"]["library_ms"] + recs["backward"]["library_ms"],
-            "step_ms": step_kernel, "step_plain_ms": step_plain, "step_bound_ms": step_bound,
-            "tensor_cores": False}
+            "step_ms": step_kernel, "step_nhwc_ms": step_nhwc, "step_plain_ms": step_plain,
+            "step_bound_ms": step_bound, "tensor_cores": False}
 
 
 def main() -> int:

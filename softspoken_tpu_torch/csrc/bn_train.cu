@@ -1,6 +1,7 @@
 // Training-mode BatchNorm with batch statistics, forward and backward
 // (ops/batchnorm.py::batch_norm_train), on a contiguous float32 (N, C, S)
-// tensor; S is H*W for a 2-D BatchNorm, L for a 1-D one.
+// tensor (S is H*W for a 2-D BatchNorm, L for a 1-D one) or a channels-last
+// (N, C, H, W) one (the *_nhwc entry points, below).
 //
 //   forward:  mean, biased var over (N, S) per channel;
 //             y = (x - mean) * rsqrt(var + eps) * w + b;
@@ -37,6 +38,23 @@
 //     last, which may still be in the 50 MB L2.
 // The flat index of a channel's element splits into (n, s) by a
 // multiply-high (Granlund-Montgomery) instead of an integer division.
+//
+// Channels-last (bn_train_*_nhwc): a 4-D (N, C, H, W) tensor stored NHWC is
+// an (R, C) matrix, R = N * H * W rows with the channels innermost, so one
+// channel's elements lie 4 * C bytes apart and a slab of one channel would
+// read 4 bytes of every 4 * C.  Its kernels take the same stages and the
+// same eight passes a different way:
+//   - one block takes a tile of rows across all C channels.  Thread t keeps
+//     channels 4g .. 4g + 3 (g = t % G, G = ceil(C / 4)) of row t / G of
+//     each pass of RPP = THREADS / G rows, so a pass reads RPP * C
+//     neighbouring floats in 16-byte loads, and VECS passes make a tile
+//     (8,192 elements at C = 32 or 128, 7,680 at C = 96);
+//   - stage 1 sums each thread's rows, then the rows of a channel group
+//     in shared memory in a fixed tree order, and writes a (tile, channel)
+//     partial, channel-major, so that stage 2 is the NCHW merge unchanged
+//     with a tile of rows in place of a slab;
+//   - stage 3 streams y (or dx) tile by tile in reverse order, each thread
+//     with its four channels' coefficients in registers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,11 +73,16 @@ struct Layout {
   uint32_t magic;  // n = (umulhi(i, magic) + i) >> shift  ==  i / S
   uint32_t shift;
   int C;
-  int P;           // slabs a channel
+  int P;           // partials a channel: slabs (NCHW) or tiles (NHWC)
+  uint32_t tile;   // elements of one channel a partial covers
+  int G;           // NHWC: groups of 4 channels, ceil(C / 4)
+  int rpp;         // NHWC: rows a pass, THREADS / G
+  int half;        // NHWC: half the least power of two >= rpp (the tree's first step)
 };
 
 Layout make_layout(int N, int C, int S) {
-  Layout L;
+  Layout L{};
+  L.tile = SLAB;
   L.M = (uint32_t)N * (uint32_t)S;
   L.S = (uint32_t)S;
   uint32_t shift = 0;
@@ -137,7 +160,7 @@ __device__ __forceinline__ float2 block_sum2(float2 v, float2* red) {
 }
 
 __device__ __forceinline__ double slab_count(int p, const Layout& L) {
-  return (double)min((uint32_t)SLAB, L.M - (uint32_t)p * SLAB);
+  return (double)min(L.tile, L.M - (uint32_t)p * L.tile);
 }
 
 // (n, mean, M2) += (nb, mb, m2b), Chan et al.
@@ -336,6 +359,210 @@ __global__ void __launch_bounds__(THREADS) bn_train_bwd_apply(
   }
 }
 
+// ---------------------------------------------------------------------------
+// channels-last: (R, C) rows, a block a tile of rows across every channel
+
+Layout make_layout_nhwc(int R, int C) {
+  Layout L{};
+  L.M = (uint32_t)R;
+  L.C = C;
+  L.G = (C + 3) / 4;
+  L.rpp = THREADS / L.G;
+  L.tile = (uint32_t)L.rpp * VECS;
+  L.P = (int)((L.M + L.tile - 1) / L.tile);
+  int h = 1;
+  while (h < L.rpp) h <<= 1;
+  L.half = h / 2;
+  return L;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// channels c0 .. c0 + 3 of `row`, zero past the last row or channel.  VEC:
+// one 16-byte load (C % 4 == 0 and a 16-byte aligned base)
+template <bool VEC>
+__device__ __forceinline__ float4 load_row4(const float* __restrict__ p, uint32_t row, int c0,
+                                            const Layout& L) {
+  if (row >= L.M) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* q = p + (long long)row * L.C + c0;
+  if (VEC) return *reinterpret_cast<const float4*>(q);
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = c0 + j < L.C ? q[j] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_row4(float* __restrict__ p, uint32_t row, int c0,
+                                           const Layout& L, float4 v) {
+  if (row >= L.M) return;
+  float* q = p + (long long)row * L.C + c0;
+  if (VEC) {
+    *reinterpret_cast<float4*>(q) = v;
+    return;
+  }
+  const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c0 + j < L.C) q[j] = a[j];
+}
+
+// row of a thread's k-th load in the tile starting at row0
+__device__ __forceinline__ uint32_t tile_row(uint32_t row0, int k, int r, const Layout& L) {
+  return row0 + (uint32_t)(k * L.rpp + r);
+}
+
+// the sum over a tile's pass rows of every thread's float4, for its channel
+// group, in a fixed tree order; returned to every thread.  `red` holds
+// THREADS values; the trailing barrier lets the caller reuse it.
+__device__ __forceinline__ float4 group_sum(float4 v, float4* red, int r, const Layout& L) {
+  const int t = threadIdx.x;
+  red[t] = v;
+  __syncthreads();
+  for (int h = L.half; h > 0; h >>= 1) {
+    if (r < h && r + h < L.rpp) red[t] = add4(red[t], red[t + h * L.G]);
+    __syncthreads();
+  }
+  v = red[t % L.G];
+  __syncthreads();
+  return v;
+}
+
+// the four channels' partials of a tile, channel-major (stage 2 reads a
+// channel's partials in a row)
+__device__ __forceinline__ void put_partials(float2* __restrict__ part, int c0, float4 a,
+                                             float4 b, const Layout& L) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c0 + j < L.C) part[(long long)(c0 + j) * L.P + blockIdx.x] = make_float2(av[j], bv[j]);
+}
+
+// a (C,) vector's values at channels c0 .. c0 + 3, zero past C
+__device__ __forceinline__ float4 channels4(const float* __restrict__ v, int c0, const Layout& L) {
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = c0 + j < L.C ? v[c0 + j] : 0.f;
+  return make_float4(a[0], a[1], a[2], a[3]);
+}
+
+// forward stage 1: a tile's (mean, M2) a channel about its own mean, the
+// tile held in registers
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS) bn_train_fwd_stats_nhwc(
+    const float* __restrict__ x, float2* __restrict__ part, Layout L) {
+  __shared__ float4 red[THREADS];
+  const int r = threadIdx.x / L.G, c0 = 4 * (threadIdx.x % L.G);
+  const bool active = r < L.rpp;
+  const uint32_t row0 = (uint32_t)blockIdx.x * L.tile;
+  float4 v[VECS];
+#pragma unroll
+  for (int k = 0; k < VECS; ++k)
+    v[k] = active ? load_row4<VEC>(x, tile_row(row0, k, r, L), c0, L)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) s = add4(s, v[k]);
+  const float cnt = (float)min(L.tile, L.M - row0);
+  s = group_sum(s, red, r, L);
+  const float4 mean = make_float4(s.x / cnt, s.y / cnt, s.z / cnt, s.w / cnt);
+  float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    if (active && tile_row(row0, k, r, L) < L.M) {
+      const float4 d = make_float4(v[k].x - mean.x, v[k].y - mean.y, v[k].z - mean.z,
+                                   v[k].w - mean.w);
+      q = make_float4(fmaf(d.x, d.x, q.x), fmaf(d.y, d.y, q.y), fmaf(d.z, d.z, q.z),
+                      fmaf(d.w, d.w, q.w));
+    }
+  }
+  q = group_sum(q, red, r, L);
+  if (active && r == 0) put_partials(part, c0, mean, q, L);
+}
+
+// forward stage 3: y = (x - mean) * (w * rstd) + b, the tiles in reverse order
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS) bn_train_fwd_apply_nhwc(
+    const float* __restrict__ x, const float* __restrict__ mean_in,
+    const float* __restrict__ rstd_in, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ y, Layout L) {
+  const int r = threadIdx.x / L.G, c0 = 4 * (threadIdx.x % L.G);
+  if (r >= L.rpp) return;
+  const uint32_t row0 = (uint32_t)(gridDim.x - 1 - blockIdx.x) * L.tile;
+  const float4 m = channels4(mean_in, c0, L), ws = channels4(w, c0, L),
+               rs = channels4(rstd_in, c0, L), bc = channels4(b, c0, L);
+  const float4 a = make_float4(ws.x * rs.x, ws.y * rs.y, ws.z * rs.z, ws.w * rs.w);
+  float4 v[VECS];
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) v[k] = load_row4<VEC>(x, tile_row(row0, k, r, L), c0, L);
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const float4 o = make_float4(fmaf(v[k].x - m.x, a.x, bc.x), fmaf(v[k].y - m.y, a.y, bc.y),
+                                 fmaf(v[k].z - m.z, a.z, bc.z), fmaf(v[k].w - m.w, a.w, bc.w));
+    store_row4<VEC>(y, tile_row(row0, k, r, L), c0, L, o);
+  }
+}
+
+// backward stage 1: a tile's (sum dy, sum dy * (x - mean)) a channel; past
+// the last row dy reads 0 and adds nothing
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS) bn_train_bwd_reduce_nhwc(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ mean_in, float2* __restrict__ part, Layout L) {
+  __shared__ float4 red[THREADS];
+  const int r = threadIdx.x / L.G, c0 = 4 * (threadIdx.x % L.G);
+  const bool active = r < L.rpp;
+  const uint32_t row0 = (uint32_t)blockIdx.x * L.tile;
+  const float4 m = channels4(mean_in, c0, L);
+  float4 xv[VECS], gv[VECS];
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const uint32_t row = active ? tile_row(row0, k, r, L) : L.M;
+    xv[k] = load_row4<VEC>(x, row, c0, L);
+    gv[k] = load_row4<VEC>(dy, row, c0, L);
+  }
+  float4 sg = make_float4(0.f, 0.f, 0.f, 0.f), sgx = sg;
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    sg = add4(sg, gv[k]);
+    sgx = make_float4(fmaf(gv[k].x, xv[k].x - m.x, sgx.x), fmaf(gv[k].y, xv[k].y - m.y, sgx.y),
+                      fmaf(gv[k].z, xv[k].z - m.z, sgx.z), fmaf(gv[k].w, xv[k].w - m.w, sgx.w));
+  }
+  sg = group_sum(sg, red, r, L);
+  sgx = group_sum(sgx, red, r, L);
+  if (active && r == 0) put_partials(part, c0, sg, sgx, L);
+}
+
+// backward stage 3: dx = k1 * dy + k2 * (x - mean) + k3, the tiles in
+// reverse order
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS) bn_train_bwd_apply_nhwc(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ mean_in, const float* __restrict__ coef,
+    float* __restrict__ dx, Layout L) {
+  const int r = threadIdx.x / L.G, c0 = 4 * (threadIdx.x % L.G);
+  if (r >= L.rpp) return;
+  const uint32_t row0 = (uint32_t)(gridDim.x - 1 - blockIdx.x) * L.tile;
+  const float4 m = channels4(mean_in, c0, L), k1 = channels4(coef, c0, L),
+               k2 = channels4(coef + L.C, c0, L), k3 = channels4(coef + 2 * L.C, c0, L);
+  float4 xv[VECS], gv[VECS];
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    xv[k] = load_row4<VEC>(x, tile_row(row0, k, r, L), c0, L);
+    gv[k] = load_row4<VEC>(dy, tile_row(row0, k, r, L), c0, L);
+  }
+#pragma unroll
+  for (int k = 0; k < VECS; ++k) {
+    const float4 o = make_float4(fmaf(k2.x, xv[k].x - m.x, fmaf(k1.x, gv[k].x, k3.x)),
+                                 fmaf(k2.y, xv[k].y - m.y, fmaf(k1.y, gv[k].y, k3.y)),
+                                 fmaf(k2.z, xv[k].z - m.z, fmaf(k1.z, gv[k].z, k3.z)),
+                                 fmaf(k2.w, xv[k].w - m.w, fmaf(k1.w, gv[k].w, k3.w)));
+    store_row4<VEC>(dx, tile_row(row0, k, r, L), c0, L, o);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
@@ -391,6 +618,58 @@ int bn_train_backward(const float* x, const float* dy, const float* w, const flo
     bn_train_bwd_apply<true><<<grid, THREADS, 0, stream>>>(x, dy, mean_in, coef, dx, L);
   else
     bn_train_bwd_apply<false><<<grid, THREADS, 0, stream>>>(x, dy, mean_in, coef, dx, L);
+  return (int)cudaGetLastError();
+}
+
+// Channels-last: x, y, dy and dx are (R, C) row-major, R = N * H * W; C at
+// most 4 * THREADS (1,024).  The same scratch, statistics and return codes.
+long long bn_train_workspace_floats_nhwc(int R, int C) {
+  const Layout L = make_layout_nhwc(R, C);
+  return 2LL * C * L.P + 3LL * C;
+}
+
+int bn_train_forward_nhwc(const float* x, const float* w, const float* b, float* y,
+                          float* running_mean, float* running_var,
+                          long long* num_batches_tracked, float* mean_out, float* rstd_out,
+                          float* work, int R, int C, float eps, float momentum,
+                          cudaStream_t stream) {
+  if (C < 1 || C > 4 * THREADS) return (int)cudaErrorInvalidValue;
+  const Layout L = make_layout_nhwc(R, C);
+  float2* part = reinterpret_cast<float2*>(work);
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(y);
+  if (vec)
+    bn_train_fwd_stats_nhwc<true><<<L.P, THREADS, 0, stream>>>(x, part, L);
+  else
+    bn_train_fwd_stats_nhwc<false><<<L.P, THREADS, 0, stream>>>(x, part, L);
+  bn_train_fwd_merge<<<C, MERGE_THREADS, 0, stream>>>(part, running_mean, running_var,
+                                                     num_batches_tracked, mean_out, rstd_out,
+                                                     L, eps, momentum);
+  if (vec)
+    bn_train_fwd_apply_nhwc<true><<<L.P, THREADS, 0, stream>>>(x, mean_out, rstd_out, w, b, y,
+                                                               L);
+  else
+    bn_train_fwd_apply_nhwc<false><<<L.P, THREADS, 0, stream>>>(x, mean_out, rstd_out, w, b,
+                                                                y, L);
+  return (int)cudaGetLastError();
+}
+
+int bn_train_backward_nhwc(const float* x, const float* dy, const float* w,
+                           const float* mean_in, const float* rstd_in, float* dx, float* dw,
+                           float* db, float* work, int R, int C, cudaStream_t stream) {
+  if (C < 1 || C > 4 * THREADS) return (int)cudaErrorInvalidValue;
+  const Layout L = make_layout_nhwc(R, C);
+  float2* part = reinterpret_cast<float2*>(work);
+  float* coef = work + 2LL * C * L.P;
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  if (vec)
+    bn_train_bwd_reduce_nhwc<true><<<L.P, THREADS, 0, stream>>>(x, dy, mean_in, part, L);
+  else
+    bn_train_bwd_reduce_nhwc<false><<<L.P, THREADS, 0, stream>>>(x, dy, mean_in, part, L);
+  bn_train_bwd_merge<<<C, MERGE_THREADS, 0, stream>>>(part, w, rstd_in, dw, db, coef, L);
+  if (vec)
+    bn_train_bwd_apply_nhwc<true><<<L.P, THREADS, 0, stream>>>(x, dy, mean_in, coef, dx, L);
+  else
+    bn_train_bwd_apply_nhwc<false><<<L.P, THREADS, 0, stream>>>(x, dy, mean_in, coef, dx, L);
   return (int)cudaGetLastError();
 }
 

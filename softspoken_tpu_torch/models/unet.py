@@ -31,6 +31,20 @@ chosen from what the forward can see (a CUDA input, bfloat16 weights,
 folded, eval mode, no shard, the plan built); everything else, the CPU and
 float32 parity among it, runs the NCHW code unchanged.
 
+The float32 training step on the card runs channels-last too, on the same
+transposed image (``_train_plan``: a CUDA input, training mode, float32
+weights, no autocast, no shard): every 4-D activation and kernel is NHWC
+from the first convolution to the last, so cuDNN's NHWC convolutions read
+and write them as they lie, each 2-D BatchNorm takes the kernel pair's
+channels-last variant, and the mask head's contraction is one float32 GEMM
+over each frame's features, read in place.  The modules, parameters and
+state dict are the NCHW ones: each kernel-3 convolution reads its kernel
+transposed, the first block reads the image zero-padded to
+``NHWC_TRAIN_IN_CHANNELS`` channels with its kernels padded alike, and the
+spec head's output is handed back as a (B, 2, 128, 256) view.  The
+dropout masks are the NCHW step's, drawn at (B, C, 1, 1).  The CPU, the
+bfloat16 step, a shard and eval mode keep the NCHW code.
+
 Training mode (``model.train()``) follows the JAX package's Flax module
 (``softspoken_tpu/models/unet.py:176-266``), not ``torch.nn``'s defaults:
 
@@ -80,6 +94,11 @@ N_MELS = 128
 # neighbourhoods (9 taps), zero-padded to a width that tensor-core engines
 # take in bf16 NHWC (16 × 2 bytes)
 NHWC_IN_CHANNELS = 16
+# the first block's input on the float32 training plan: the one-channel
+# image zero-padded to 4 channels, the fewest that cuDNN's TF32 NHWC engines
+# take (one channel sends the first convolutions to NCHW kernels that
+# transpose their operands)
+NHWC_TRAIN_IN_CHANNELS = 4
 
 # (in, out) channels of every residual block — pytorch_neural_nets.py
 RES_BLOCK_SHAPES = {
@@ -320,13 +339,33 @@ class ResBlock(nn.Module):
         return ops.conv_add_relu(out, self.nhwc_w2, r, self.nhwc_b2r, 1)
 
     def forward(self, x: torch.Tensor,
-                generator: Union[torch.Generator, RowDraws, None] = None) -> torch.Tensor:
-        identity = self.residual(x)
-        out = F.relu(self.conv1(x))
-        out = F.relu(self.conv2(out) + identity)
+                generator: Union[torch.Generator, RowDraws, None] = None,
+                transposed: bool = False) -> torch.Tensor:
+        """``transposed``: ``x`` is the transposed image (time as rows,
+        ``SpecUNet2D._trunk``'s training plan), which the kernel-3
+        convolutions read with their kernels transposed."""
+        identity = _conv_bn(self.residual, x, transposed)
+        out = F.relu(_conv_bn(self.conv1, x, transposed))
+        out = F.relu(_conv_bn(self.conv2, out, transposed) + identity)
         if self.training and self.dropout_p > 0:
             out = channel_dropout(out, self.dropout_p, generator)
         return out
+
+
+def _conv_bn(seq: nn.Sequential, x: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """``seq(x)`` (a convolution, then its BatchNorm unless folded); with
+    ``transposed`` the convolution takes its kernel transposed, zero-padded
+    to ``x``'s channels (``NHWC_TRAIN_IN_CHANNELS``), in channels-last."""
+    if not transposed:
+        return seq(x)
+    conv, *rest = seq
+    w = conv.weight.transpose(2, 3)
+    if w.shape[1] < x.shape[1]:
+        w = F.pad(w, (0, 0, 0, 0, 0, x.shape[1] - w.shape[1]))
+    y = conv._conv_forward(x, w.contiguous(memory_format=torch.channels_last), conv.bias)
+    for m in rest:
+        y = m(y)
+    return y
 
 
 def _up(x: torch.Tensor) -> torch.Tensor:
@@ -482,21 +521,30 @@ class SpecUNet2D(nn.Module):
         return self
 
     def _trunk(self, mel: torch.Tensor, gen: Optional[torch.Generator] = None,
-               ops=None) -> torch.Tensor:
+               ops=None, train_nhwc: bool = False) -> torch.Tensor:
         """(B, 128, 256) → conv9 features (B, 32, 128, 256).  With ``ops``
         (``CudnnEpilogues`` or ``PlainEpilogues``) the channels-last plan, on the
         transposed image (time as rows, features (B, 32, 256, 128) with
         conv9_1's channel scales, which the heads' plan undoes): each
-        frame's conv9 features then lie together for the mask head."""
+        frame's conv9 features then lie together for the mask head.  With
+        ``train_nhwc`` the training plan: the modules themselves on the
+        transposed image in channels-last, features (B, 32, 256, 128)."""
         if ops is None:
-            x = mel.to(self.conv1_1.conv1[0].weight.dtype).unsqueeze(1)
+            x = mel.to(self.conv1_1.conv1[0].weight.dtype)
+            if train_nhwc:  # (B, 4, T, H) channels-last, the image in channel 0
+                B, H, T = x.shape
+                img = x.new_zeros((B, T, H, NHWC_TRAIN_IN_CHANNELS))
+                img[..., 0] = x.transpose(1, 2)
+                x = img.permute(0, 3, 1, 2)
+            else:
+                x = x.unsqueeze(1)
             pool = functools.partial(F.max_pool2d, kernel_size=2)
 
             def up_cat(skip, low):
                 return torch.cat([skip, _up(low)], 1)
 
             def block(m, x):
-                return m(x, gen)
+                return m(x, gen, train_nhwc)
         else:
             x = nhwc_im2col(mel, self.conv1_1.nhwc_w1.dtype)
             pool, up_cat = nhwc_pool, nhwc_up_cat
@@ -515,13 +563,16 @@ class SpecUNet2D(nn.Module):
         return block(self.conv9_1, up_cat(conv1, conv8))
 
     def _mask_head(self, conv9: torch.Tensor, gen: Optional[torch.Generator] = None,
-                   nhwc: bool = False) -> torch.Tensor:
-        if nhwc:
+                   nhwc: bool = False, train_nhwc: bool = False) -> torch.Tensor:
+        if nhwc or train_nhwc:
             # conv9 (B, 32, T, H) in channels-last: one GEMM over each frame's
-            # (mel, channel) features, as conv_flatten
+            # (mel, channel) features, as conv_flatten (the training plan's
+            # kernel reordered from the parameter, in float32)
             B, C, T, H = conv9.shape
+            w = (self.nhwc_flat_w if nhwc else
+                 self.conv_flatten.weight[..., 0].transpose(1, 2).reshape(-1, H * C))
             feats = conv9.permute(0, 2, 3, 1).reshape(B * T, H * C)
-            flat = F.relu(F.linear(feats, self.nhwc_flat_w, self.conv_flatten.bias))
+            flat = F.relu(F.linear(feats, w, self.conv_flatten.bias))
             flat = flat.view(B, T, -1).transpose(1, 2).contiguous()    # (B, 4, 256)
         else:
             w = self.conv_flatten.weight[..., 0]                     # (4, 32, 128)
@@ -542,6 +593,14 @@ class SpecUNet2D(nn.Module):
         count("batches_nhwc")
         return CudnnEpilogues
 
+    def _train_plan(self, mel: torch.Tensor) -> bool:
+        """Whether ``forward`` takes the channels-last training plan (see
+        the module docstring): a CUDA input, training mode, float32
+        weights, no autocast, no shard."""
+        conv = self.conv1_1.conv1[0]
+        return (mel.is_cuda and self.training and conv.weight.dtype == torch.float32
+                and conv.shard is None and not torch.is_autocast_enabled(mel.device.type))
+
     def mask_logits(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, 128, 256) → raw per-frame speech logits (B, 256) float32."""
         ops = self._ops(mel)
@@ -553,15 +612,18 @@ class SpecUNet2D(nn.Module):
         both float32.  ``generator`` draws the dropout masks in training
         mode."""
         ops = self._ops(mel)
-        conv9 = self._trunk(mel, generator, ops)
+        train_nhwc = self._train_plan(mel)
+        conv9 = self._trunk(mel, generator, ops, train_nhwc)
         block, conv = self.spec_output_conv
         if ops is None:
-            spec = F.relu(conv(block(conv9, generator))).to(torch.float32)
+            spec = F.relu(conv(block(conv9, generator, train_nhwc))).to(torch.float32)
+            if train_nhwc:  # (B, 2, T, H) channels-last, as a (B, 2, H, T) view
+                spec = spec.transpose(2, 3)
         else:  # back to (B, 2, 128, 256), contiguous
             spec = F.conv2d(block.forward_nhwc(conv9, ops), self.nhwc_spec_w, conv.bias)
             spec = F.relu(spec).transpose(2, 3)
             spec = spec.to(torch.float32, memory_format=torch.contiguous_format)
-        return spec, self._mask_head(conv9, generator, ops is not None)
+        return spec, self._mask_head(conv9, generator, ops is not None, train_nhwc)
 
 
 def param_count(model: nn.Module) -> int:

@@ -109,6 +109,29 @@ def test_plain_twin_is_the_code_before_the_kernel_and_near_float64(shape):
         assert err < 5e-6, (name, err)
 
 
+@pytest.mark.parametrize("shape", [(6, 5, 7, 9), (4, 32, 16, 24)], ids=["c5", "c32"])
+def test_plain_twin_on_a_channels_last_input(shape):
+    """The plain twin on a channels-last input (the layout of the float32
+    step's activations on the card) keeps it: y and dx come back
+    channels-last; the running statistics are the contiguous input's bit
+    for bit, and y, dx, dw and db are within the same float32 rounding of
+    the float64 function as test_plain_twin_is_the_code_before_the_kernel_and_near_float64
+    holds the contiguous input to."""
+    cl = torch.channels_last
+    t = _inputs(shape)
+    flat = _run(batchnorm.batch_norm_train_plain, t)
+    got = _run(batchnorm.batch_norm_train_plain,
+               dict(t, x=t["x"].contiguous(memory_format=cl),
+                    dy=t["dy"].contiguous(memory_format=cl)))
+    assert got[0].is_contiguous(memory_format=cl) and got[4].is_contiguous(memory_format=cl)
+    for i in (1, 2, 3):
+        assert torch.equal(got[i], flat[i])
+    want = _run(_float64, {k: v.double() for k, v in t.items()})
+    for name, i in (("y", 0), ("dx", 4), ("dw", 5), ("db", 6)):
+        err = float((got[i].double() - want[i]).abs().max() / want[i].abs().max())
+        assert err < 5e-6, (name, err)
+
+
 class _OneRank:
     """A ``shard`` of one rank: the all-gather of a tensor is that tensor."""
 
